@@ -1,0 +1,45 @@
+"""Carry state across from the JAX reference package.
+
+The counting system has no weights: what the two packages must share to
+compare like with like is the graph and the colorings.  This module takes
+plain numpy arrays (never a ``repro`` object's methods), so the port still
+imports nothing of the reference; a caller holding a reference ``Graph``
+passes its ``(n, src, dst)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import Graph
+
+__all__ = ["graph_from_arrays", "colorings_to_tensor"]
+
+
+def graph_from_arrays(n: int, src, dst) -> Graph:
+    """The port's :class:`Graph` from a reference graph's ``(n, src, dst)``.
+
+    The arrays must already be in canonical form (both directions, sorted
+    by ``(dst, src)``), as every reference ``Graph`` is; that is checked,
+    not repaired, so the two packages hash and count the same edges.
+    """
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError("src and dst must be 1-D arrays of equal length")
+    if src.size and (min(src.min(), dst.min()) < 0 or max(src.max(), dst.max()) >= n):
+        raise ValueError(f"edge endpoints outside [0, {n})")
+    key = dst.astype(np.int64) * max(int(n), 1) + src
+    if np.any(np.diff(key) <= 0):
+        raise ValueError("edges are not sorted by (dst, src) without duplicates")
+    return Graph(n=int(n), src=src, dst=dst)
+
+
+def colorings_to_tensor(colors, device) -> torch.Tensor:
+    """``(iters, n)`` (or ``(n,)``) integer numpy colorings -> int64 tensor
+    on ``device``."""
+    colors = np.asarray(colors)
+    if not np.issubdtype(colors.dtype, np.integer):
+        raise TypeError(f"colorings must be integers, got {colors.dtype}")
+    return torch.as_tensor(colors.astype(np.int64), device=torch.device(device))

@@ -88,6 +88,11 @@ def pytest_configure(config):
         "check.sh runs them as their own lane with a fixed "
         "REPRO_FAULT_SEED under a per-test timeout",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); skips "
+        "without one",
+    )
     if not _HAVE_PYTEST_TIMEOUT:
         config.addinivalue_line(
             "markers",

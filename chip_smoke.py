@@ -27,18 +27,36 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 5. Exactness: on tiny grid and Erdos-Renyi graphs the ``blocked`` engine's
    raw counts, every stage through the fused kernel, equal the brute-force
    colorful counts.
+6. The flash-attention kernel against its plain version at granite-8b's
+   head geometry (h=32, h_kv=8, d=128, bf16, causal) at (b, s) = (4, 4096),
+   (1, 32768) and a ragged (2, 4000); ``F.scaled_dot_product_attention``
+   is timed as a yardstick (the port never calls it).
+7. The LM main path: granite-8b at full width and depth with
+   ``attn_impl="flash"`` and seeded random weights, ``forward`` on b=4,
+   s=4096 tokens.  In fp32 its logits must agree with the ``sdpa`` forward
+   within 5e-5 of their largest magnitude; then the config's bf16 forward,
+   with the launch counters reset just before and read just after, must
+   launch the kernel once per layer and give finite logits.  Records
+   tokens/s, peak memory and a ``torch.profiler`` split.
+8. ``ServeEngine`` (fp32, 8 slots of 1024) answers 4 requests with 64-token
+   prompts, token for token equal to offline greedy decoding through
+   ``forward``, then 8 requests with prompts of 16-512 tokens, each of
+   which must finish with its 16 tokens; 4 more run under
+   ``torch.profiler``.
 
 The second-to-last line of output is the ``kernels`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
 the repository beside this file, the script prints no result and exits
 nonzero.  Times come from CUDA events; ``bound_ms`` is the larger of the
-compulsory bytes over 3.35 TB/s and the operations over 67 TFLOP/s (fp32),
-the H100 SXM's published peaks.
+compulsory bytes over 3.35 TB/s and the operations over the H100 SXM's
+published peak for their type: 67 TFLOP/s fp32 for the counting kernels,
+989 TFLOP/s dense bf16 for attention.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -51,14 +69,16 @@ HERE = Path(__file__).resolve().parent
 #: outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 
 GRAPH_SPEC = dict(n=1 << 20, num_edges=8_388_608, seed=1)
 TEMPLATE = "u12"
 MEMORY_BUDGET_BYTES = 48 * 2**30
 SPMM_WIDTHS = (64, 792)
 EMA_CHUNK = 2  # colorings per chunk at this budget (checked in phase 4)
-#: Kernels that the tree-template main path launches.
-MAIN_PATH_KERNELS = ("spmm_ema",)
+#: Kernels that each main path launches: tree counting, the LM forward.
+COUNTING_PATH_KERNELS = ("spmm_ema",)
+LM_PATH_KERNELS = ("flash_attention",)
 EXACT_TEMPLATES = ("u3", "u5-2", "u6", "u7")
 
 #: Kernel vs plain version: relative tolerance.  The plain versions sum
@@ -68,14 +88,29 @@ KERNEL_RTOL = 1e-4
 #: Engine totals, ``blocked`` vs the plain ``edges`` path (same reasons).
 TOTALS_RTOL = 1e-4
 
+#: LM path: (b, s) of the flash checks, of the forward, and the serving run.
+FLASH_SHAPES = ((4, 4096), (1, 32768), (2, 4000))
+LM_BATCH, LM_SEQ = 4, 4096
+SERVE_SLOTS, SERVE_LEN, SERVE_NEW = 8, 1024, 16
+#: Flash kernel vs plain version, both outputs in bf16 of values computed
+#: in fp32 by both: one bf16 rounding is at most 2^-7 of |want|, and the
+#: absolute term only covers fp32 summation-order error near zero.  It must
+#: stay well below a typical output (~0.009 on a 32k-key causal row), or a
+#: dropped key tile or a shifted causal boundary on long rows would pass.
+FLASH_RTOL = 1e-2
+FLASH_ATOL = 1e-4
+#: fp32 forward, flash vs sdpa: max |diff| over max |logits| (measured
+#: 3.5e-6 on the H100, so the gate leaves a margin of about 14x).
+LOGITS_RTOL = 5e-5
+
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -95,12 +130,15 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def max_abs_err(got, want, rtol: float, what: str) -> float:
+def max_abs_err(got, want, rtol: float, what: str, atol=None) -> float:
+    """Max |got - want|; raises unless every |got - want| <= atol + rtol |want|
+    (``atol`` defaults to 1e-6 of the largest |want|)."""
     import torch
 
     err = (got - want).abs()
     scale = float(want.abs().max()) if want.numel() else 0.0
-    ok = bool(torch.all(err <= rtol * want.abs() + 1e-6 * scale))
+    atol = 1e-6 * scale if atol is None else atol
+    ok = bool(torch.all(err <= rtol * want.abs() + atol))
     worst = float(err.max()) if err.numel() else 0.0
     if not ok or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: kernel disagrees with its plain version "
@@ -274,9 +312,10 @@ def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
 # ---------------------------------------------------------------------------
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, classify=None) -> dict:
     """Device time by kernel over one call of ``fn``, and the device's busy
-    share of the call's wall time (``torch.profiler``)."""
+    share of the call's wall time (``torch.profiler``).  With ``classify``
+    (kernel name -> kind), also the device time per kind."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -296,13 +335,20 @@ def device_profile(fn) -> dict:
         events, source = [e for e in averages if device_us(e) > 0], "operators"
     busy_ms = sum(device_us(e) for e in events) / 1e3
     top = sorted(events, key=device_us, reverse=True)[:6]
-    return {
+    out = {
         "source": source,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": (1.0 - busy_ms / wall_ms) if events else None,
         "top": [{"name": e.key[:60], "ms": device_us(e) / 1e3, "calls": e.count} for e in top],
     }
+    if classify is not None:
+        split = {}
+        for e in events:
+            kind = classify(e.key)
+            split[kind] = split.get(kind, 0.0) + device_us(e) / 1e3
+        out["split_ms"] = split
+    return out
 
 
 def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
@@ -347,7 +393,7 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     if not np.allclose(est, est_plain, rtol=TOTALS_RTOL, atol=0.0):
         raise AssertionError(f"blocked {est.tolist()} vs edges {est_plain.tolist()} "
                              f"beyond rtol={TOTALS_RTOL}")
-    for name in MAIN_PATH_KERNELS:
+    for name in COUNTING_PATH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     out = {
@@ -405,26 +451,226 @@ def exactness(device) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the flash-attention kernel
+# ---------------------------------------------------------------------------
 
 
-def kernel_record(name, source, replaces, launches, rows) -> dict:
-    """One kernel's entry: sums over the shapes it was checked at (for the
-    fused kernel, those the main path gives it)."""
+def check_flash(cfg, shapes, device, reps=3) -> list:
+    """The kernel against its plain version at ``cfg``'s head geometry in
+    bf16, causal, at each ``(b, s)``; ``F.scaled_dot_product_attention`` on
+    the same inputs (laid out as it wants them beforehand) is the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    h, h_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = []
+    for b, s in shapes:
+        q = torch.randn((b, s, h, d), generator=gen, device=device).to(torch.bfloat16)
+        k = torch.randn((b, s, h_kv, d), generator=gen, device=device).to(torch.bfloat16)
+        v = torch.randn((b, s, h_kv, d), generator=gen, device=device).to(torch.bfloat16)
+
+        def plain():
+            return flash_attention_ref(q, k, v, causal=True)
+
+        got = flash_attention(q, k, v, causal=True)
+        want = plain()
+        got, want = got.float(), want.float()
+        err = max_abs_err(got, want, FLASH_RTOL, f"flash_attention b={b} s={s}", atol=FLASH_ATOL)
+        # worst error relative to |want| (elements below the absolute term
+        # are measured against it)
+        rel = float(((got - want).abs() / want.abs().clamp_min(FLASH_ATOL)).max())
+        del got, want
+        row = {"shape": f"b={b} s={s} h={h} h_kv={h_kv} d={d} bf16 causal", "max_abs_err": err,
+               "max_rel_err": rel}
+        nbytes = 2 * (2 * b * s * h * d + 2 * b * s * h_kv * d)   # q, o; k, v
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * h * s * s * d / 2,
+                                                    PEAK_BF16_FLOPS)
+        row["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=True), reps)
+        row["plain_ms"] = time_ms(plain, 1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps)
+        log(f"[flash] {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the LM forward
+# ---------------------------------------------------------------------------
+
+
+def lm_kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "flash_attention" in low:
+        return "flash_attention"
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
+        return "cublas_products"
+    return "rest"
+
+
+def lm_forward(cfg, device, reps=2):
+    """granite-8b forward at full width and depth: the fp32 flash-vs-sdpa
+    gate, then the bf16 forward (the config's dtype) as the main path.
+    Returns the record and the parameters (phase 8 reuses them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(cfg, attn_impl="flash", dtype="float32")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg32, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_SEQ)), device=device)
+
+    before = flash_attention.launches
+    t0 = time.perf_counter()
+    ref32, _, _ = T.forward(params, cfg32, tokens)
+    torch.cuda.synchronize()
+    fp32_s = time.perf_counter() - t0
+    fp32_launches = flash_attention.launches - before
+    sdpa32, _, _ = T.forward(params, dataclasses.replace(cfg32, attn_impl="sdpa"), tokens)
+    scale = float(sdpa32.abs().max())
+    diff = float((ref32 - sdpa32).abs().max())
+    del sdpa32
+    if not (diff <= LOGITS_RTOL * scale) or not bool(torch.isfinite(ref32).all()):
+        raise AssertionError(f"fp32 logits: flash vs sdpa max |diff| {diff:g} > "
+                             f"{LOGITS_RTOL} x max |logits| {scale:g}")
+    if fp32_launches != cfg.n_layers:
+        raise AssertionError(f"fp32 forward launched flash_attention {fp32_launches} times, "
+                             f"not {cfg.n_layers}")
+
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    logits, _, _ = T.forward(params, cfg16, tokens)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": flash_attention.launches}
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"bf16 forward launched flash_attention "
+                             f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bf16 logits are not finite")
+    bf16_dev = float((logits.float() - ref32).abs().max())
+    del logits, ref32
+    torch.cuda.reset_peak_memory_stats()  # bf16 forwards over the resident weights
+    ms = time_ms(lambda: T.forward(params, cfg16, tokens), reps)
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(lambda: (T.forward(params, cfg16, tokens),
+                                      torch.cuda.synchronize()), lm_kernel_kind)
+    out = {
+        "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "param_count": cfg.param_count(),
+        "batch": LM_BATCH, "seq": LM_SEQ,
+        "init_params_s": init_s,
+        "fp32_forward_s": fp32_s,
+        "fp32_flash_vs_sdpa_max_abs_diff": diff,
+        "fp32_max_abs_logit": scale,
+        "bf16_vs_fp32_max_abs_diff": bf16_dev,
+        "launches": launches,
+        "bf16_forward_ms": ms,
+        "bf16_tokens_per_s": LM_BATCH * LM_SEQ / (ms / 1e3),
+        "bf16_max_memory_allocated": peak,
+        "profile": profile,
+    }
+    log(f"[lm] {json.dumps(out)}")
+    return out, params, cfg32
+
+
+# ---------------------------------------------------------------------------
+# phase 8: ServeEngine
+# ---------------------------------------------------------------------------
+
+
+def serve(cfg32, params, device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    rng = np.random.default_rng(1)
+    engine = ServeEngine(cfg32, params, max_batch=SERVE_SLOTS, max_len=SERVE_LEN)
+    equal = [Request(uid=i, prompt=rng.integers(0, cfg32.vocab_size, 64).astype(np.int32),
+                     max_new_tokens=SERVE_NEW) for i in range(4)]
+    t0 = time.perf_counter()
+    engine.run(equal)
+    equal_s = time.perf_counter() - t0
+    toks = torch.as_tensor(np.stack([r.prompt for r in equal]), device=device).long()
+    for _ in range(SERVE_NEW):
+        logits, _, _ = T.forward(params, cfg32, toks)
+        toks = torch.cat([toks, logits[:, -1].argmax(-1)[:, None]], 1)
+        del logits
+    greedy = toks[:, 64:].tolist()
+    for req, want in zip(equal, greedy):
+        if req.generated != want:
+            raise AssertionError(f"request {req.uid}: served {req.generated} != greedy {want}")
+
+    lengths = rng.integers(16, 513, size=SERVE_SLOTS)
+    mixed = [Request(uid=100 + i, prompt=rng.integers(0, cfg32.vocab_size, int(n)).astype(np.int32),
+                     max_new_tokens=SERVE_NEW) for i, n in enumerate(lengths)]
+    t0 = time.perf_counter()
+    engine.run(mixed)
+    mixed_s = time.perf_counter() - t0
+    for req in mixed:
+        if not req.done or len(req.generated) != SERVE_NEW:
+            raise AssertionError(f"request {req.uid} ended with {len(req.generated)} tokens")
+    st = dict(engine.stats)
+    # four more requests under torch.profiler, for the device's idle share
+    # while serving (kept out of the numbers above)
+    more = [Request(uid=200 + i, prompt=rng.integers(0, cfg32.vocab_size, 64).astype(np.int32),
+                    max_new_tokens=SERVE_NEW) for i in range(4)]
+    profile = device_profile(lambda: engine.run(more), lm_kernel_kind)
+    out = {
+        "slots": SERVE_SLOTS, "max_len": SERVE_LEN, "dtype": cfg32.dtype,
+        "requests": len(equal) + len(mixed),
+        "equal_prompt_group_s": equal_s, "mixed_prompt_lengths": lengths.tolist(),
+        "mixed_group_s": mixed_s,
+        "prefill_ms_per_request": st["prefill_seconds"] / st["prefills"] * 1e3,
+        "decode_steps": st["decode_steps"], "decode_tokens": st["decode_tokens"],
+        "decode_tokens_per_s": st["decode_tokens"] / st["decode_seconds"],
+        "decode_ms_per_step": st["decode_seconds"] / st["decode_steps"] * 1e3,
+        "greedy_match": True,
+        "profile_of_4_more_requests": profile,
+    }
+    log(f"[serve] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def kernel_record(name, path, source, replaces, launches, rows, timed=None) -> dict:
+    """One kernel's entry.  Times and bounds sum over ``timed`` (default:
+    every row; for the fused kernel, the shapes the main path gives it);
+    the error is the worst over all rows."""
+    timed = rows if timed is None else timed
     return {
         "name": name,
-        "on_main_path": name in MAIN_PATH_KERNELS,
+        "path": path,
+        "on_main_path": name in COUNTING_PATH_KERNELS + LM_PATH_KERNELS,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": (sum(r["library_ms"] for r in rows)
-                       if all("library_ms" in r for r in rows) else None),
-        "roofline_share": sum(r["bound_ms"] for r in rows) / sum(r["ms"] for r in rows),
+        "ms": sum(r["ms"] for r in timed),
+        "plain_ms": sum(r["plain_ms"] for r in timed),
+        "bound_ms": sum(r["bound_ms"] for r in timed),
+        "bound_by": max(timed, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": (sum(r["library_ms"] for r in timed)
+                       if all("library_ms" in r for r in timed) else None),
+        "roofline_share": sum(r["bound_ms"] for r in timed) / sum(r["ms"] for r in timed),
         "shapes": rows,
     }
 
@@ -477,24 +723,44 @@ def main(argv=None) -> int:
     del graph
     torch.cuda.empty_cache()
     exactness(device)
+    log(f"[time] counting phases done at {time.perf_counter() - t_start:.1f} s")
+
+    from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
+
+    flash_rows = check_flash(LM_CONFIG, FLASH_SHAPES, device)
+    lm, params, cfg32 = lm_forward(LM_CONFIG, device)
+    served = serve(cfg32, params, device)
+    del params
+    torch.cuda.empty_cache()
+    log(f"[time] LM phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         kernel_record(
-            "spmm_ema", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
+            "spmm_ema", "counting", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
             "src/repro/kernels/spmm_ema/kernel.py:48", main["launches"]["spmm_ema"],
             ema_rows,
         ),
         kernel_record(
-            "spmm_blocked", "src/repro_torch/kernels/spmm_blocked/csrc/spmm_blocked.cu",
+            "spmm_blocked", "counting",
+            "src/repro_torch/kernels/spmm_blocked/csrc/spmm_blocked.cu",
             "src/repro/kernels/spmm_blocked/kernel.py:62",
             main["launches"]["spmm_blocked"], spmm_rows,
+        ),
+        # times: one launch at the forward's shape (b=4, s=4096), which the
+        # bf16 forward launches once per layer
+        kernel_record(
+            "flash_attention", "lm",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:30",
+            lm["launches"]["flash_attention"], flash_rows, timed=flash_rows[:1],
         ),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "main": main, "kernels": kernels}, indent=1))
+            {"card": card, "main": main, "lm": lm, "serve": served, "kernels": kernels},
+            indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""repro_torch: the PyTorch/CUDA port of the SubGraph2Vec counting system.
+"""repro_torch: the PyTorch/CUDA port of the SubGraph2Vec counting system
+and of its dense-GQA LM inference path.
 
 A package beside ``repro`` (the JAX reference, which it never imports).
 Module names follow the reference's, so each module's counterpart is easy
-to find.  The engine runs on a CUDA card unless the caller passes
-``device="cpu"``; its ``blocked`` backend launches hand-written CUDA
-kernels (:mod:`repro_torch.kernels`), and every other path is plain
-PyTorch.
+to find.  Entry points run on a CUDA card unless the caller passes
+``device="cpu"``.  The counting engine's ``blocked`` backend and the LM's
+cache-free forward with ``attn_impl="flash"`` launch hand-written CUDA
+kernels (:mod:`repro_torch.kernels`); every other path is plain PyTorch.
 """

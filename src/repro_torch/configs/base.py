@@ -1,0 +1,103 @@
+"""LM config dataclass and the LM shape cells (copies of ``repro.configs.base``).
+
+Each ported architecture is a module in ``repro_torch.configs`` exporting
+``CONFIG`` (the published configuration) and ``SMOKE_CONFIG`` (a reduced
+same-family config for CPU tests).  The GNN, recsys and subgraph configs
+come with their slices of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Tuple
+
+__all__ = ["LMConfig", "ShapeCell", "LM_SHAPES"]
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 128
+    ffn_activation: str = "swiglu"  # swiglu | squared_relu | geglu | gelu
+    attention: str = "gqa"  # gqa | mla
+    # MLA (DeepSeek-V2) parameters
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+    # MoE
+    moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
+    # misc
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: bool = True
+    attn_q_chunk: int = 1024  # query-chunked attention (memory)
+    attn_impl: str = "sdpa"  # sdpa | flash (CUDA kernel; cache-free GQA path)
+    scan_layers: bool = True
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + layers)."""
+        d, h, kv, dh = self.d_model, self.n_heads, self.n_kv_heads, self.d_head
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.attention == "mla":
+            attn = d * self.kv_lora_rank + d * h * self.qk_rope_head_dim // h
+            attn += self.kv_lora_rank * h * (self.qk_nope_head_dim + self.v_head_dim)
+            attn += d * h * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+            attn += h * self.v_head_dim * d
+        else:
+            attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+        ff_mult = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        dense_ffn = ff_mult * d * self.d_ff
+        total = emb
+        for layer in range(self.n_layers):
+            total += attn
+            if self.moe and layer >= self.first_k_dense:
+                total += (self.n_experts + self.n_shared_experts) * ff_mult * d * self.moe_d_ff
+                total += d * self.n_experts  # router
+            else:
+                total += dense_ffn
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed top-k + shared)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        ff_mult = 3 if self.ffn_activation in ("swiglu", "geglu") else 2
+        full = self.param_count()
+        moe_layers = self.n_layers - self.first_k_dense
+        inactive = (self.n_experts - self.moe_top_k) * ff_mult * d * self.moe_d_ff * moe_layers
+        return full - inactive
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) column of the dry-run grid."""
+
+    name: str
+    kind: str  # train | prefill | decode | serve | ...
+    params: Dict[str, int] = field(default_factory=dict)
+
+
+LM_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", "train", {"seq_len": 4096, "global_batch": 256}),
+    ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
+    ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
+    ShapeCell("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+)

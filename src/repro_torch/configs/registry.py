@@ -1,0 +1,42 @@
+"""--arch registry of the port: architecture ids -> config modules.
+
+Only the dense-GQA LMs are ported.  Asking for any other architecture of
+the reference's registry raises ``NotImplementedError`` naming the ROADMAP
+item that ports it; an id the reference does not know raises ``KeyError``.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+__all__ = ["ARCHS", "get_arch"]
+
+# arch id -> (family, config module)
+ARCHS: Dict[str, Tuple[str, str]] = {
+    "nemotron-4-15b": ("lm", "repro_torch.configs.nemotron_4_15b"),
+    "granite-8b": ("lm", "repro_torch.configs.granite_8b"),
+    "granite-20b": ("lm", "repro_torch.configs.granite_20b"),
+}
+
+# arch id of the reference's registry -> the ROADMAP item that ports it
+_NOT_PORTED: Dict[str, str] = {
+    "deepseek-v2-lite-16b": "ROADMAP queue 1 item 13 (MLA and MoE inference)",
+    "dbrx-132b": "ROADMAP queue 1 item 13 (MLA and MoE inference)",
+    "gat-cora": "ROADMAP queue 1 item 15 (GNN)",
+    "nequip": "ROADMAP queue 1 item 15 (GNN)",
+    "gcn-cora": "ROADMAP queue 1 item 15 (GNN)",
+    "mace": "ROADMAP queue 1 item 15 (GNN)",
+    "two-tower-retrieval": "ROADMAP queue 1 item 15 (recsys)",
+    "subgraph2vec": "ROADMAP queue 1 item 10 (benchmarks)",
+}
+
+
+def get_arch(arch: str):
+    """Returns (family, config module)."""
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet: {_NOT_PORTED[arch]}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    family, module = ARCHS[arch]
+    return family, importlib.import_module(module)

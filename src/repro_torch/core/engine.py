@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.exec.base import EngineBackend, make_backend
 from repro_torch.exec.select import ENGINE_BACKENDS, resolve_backend_config
 from repro_torch.plan.cost import DEFAULT_MEMORY_BUDGET_BYTES, CostModel
@@ -48,21 +49,6 @@ __all__ = [
 ]
 
 logger = logging.getLogger("repro_torch.engine")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the CUDA card (raises without one); else ``device``."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CountingEngine runs on a CUDA card by default and none is "
-                "available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
-    return device
 
 
 @dataclass(frozen=True)

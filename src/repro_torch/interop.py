@@ -1,10 +1,11 @@
 """Carry state across from the JAX reference package.
 
-The counting system has no weights: what the two packages must share to
-compare like with like is the graph and the colorings.  This module takes
-plain numpy arrays (never a ``repro`` object's methods), so the port still
-imports nothing of the reference; a caller holding a reference ``Graph``
-passes its ``(n, src, dst)``.
+What the two packages must share to compare like with like: for counting,
+the graph and the colorings; for the LMs, the parameters.  This module
+takes plain numpy arrays (never a ``repro`` object's methods), so the port
+still imports nothing of the reference; a caller holding a reference
+``Graph`` passes its ``(n, src, dst)``, and one holding reference LM
+parameters passes ``jax.tree.map(np.asarray, params)``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.core.graph import Graph
 
-__all__ = ["graph_from_arrays", "colorings_to_tensor"]
+__all__ = ["graph_from_arrays", "colorings_to_tensor", "lm_params_from_numpy"]
 
 
 def graph_from_arrays(n: int, src, dst) -> Graph:
@@ -43,3 +44,33 @@ def colorings_to_tensor(colors, device) -> torch.Tensor:
     if not np.issubdtype(colors.dtype, np.integer):
         raise TypeError(f"colorings must be integers, got {colors.dtype}")
     return torch.as_tensor(colors.astype(np.int64), device=torch.device(device))
+
+
+def lm_params_from_numpy(params_np, cfg, device):
+    """The reference's LM parameter tree (nested dicts and lists of numpy
+    arrays) as the port's fp32 parameters on ``device``.
+
+    The tree must have exactly the keys and shapes of
+    :func:`repro_torch.models.transformer.param_shapes` for ``cfg``;
+    anything else raises ``ValueError`` naming the first offending path.
+    """
+    from repro_torch.models.transformer import param_shapes
+
+    device = torch.device(device)
+
+    def convert(want, got, path):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                have = sorted(got) if isinstance(got, dict) else type(got).__name__
+                raise ValueError(f"{path or 'params'}: keys {have} != {sorted(want)}")
+            return {k: convert(want[k], got[k], f"{path}/{k}") for k in want}
+        if isinstance(want, list):
+            if not isinstance(got, (list, tuple)) or len(got) != len(want):
+                raise ValueError(f"{path}: expected a list of {len(want)} groups")
+            return [convert(w, g, f"{path}[{i}]") for i, (w, g) in enumerate(zip(want, got))]
+        arr = np.asarray(got)
+        if arr.shape != tuple(want.shape):
+            raise ValueError(f"{path}: shape {arr.shape} != {tuple(want.shape)}")
+        return torch.as_tensor(arr.astype(np.float32), device=device)
+
+    return convert(param_shapes(cfg), params_np, "")

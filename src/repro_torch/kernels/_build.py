@@ -29,6 +29,7 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 KERNEL_SOURCES = (
     _KERNELS_DIR / "spmm_blocked" / "csrc" / "spmm_blocked.cu",
     _KERNELS_DIR / "spmm_ema" / "csrc" / "spmm_ema.cu",
+    _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
 )
 
 #: Headers every source may include (part of each library's hash).

@@ -1,0 +1,207 @@
+"""Decoder-only transformer LM: the dense-GQA inference path of the port.
+
+Covers the GQA / MQA archs (granite-8b, granite-20b, nemotron-4-15b):
+RMSNorm, RoPE, dense SwiGLU / GELU / squared-ReLU feed-forward, the
+cache-free forward (whose attention is the flash kernel when
+``cfg.attn_impl == "flash"``) and KV-cache prefill / decode.  MLA and MoE
+(ROADMAP queue 1 item 13), ``loss_fn`` (item 14) and the mesh partition
+specs (item 11) are not ported.
+
+Parameters keep the reference's layout: a dict with ``embed``,
+``final_norm``, ``unembed`` and ``groups``, a list with one dict per
+homogeneous layer group whose leaves are the group's layers stacked on a
+leading axis.  They are fp32 and cast to ``cfg.dtype`` at use.  The
+layers of a group run as a Python loop (the reference scans them).
+
+Entry points:
+  * ``init_params(cfg, seed, device)`` / ``param_shapes(cfg)`` (no storage)
+  * ``forward(params, cfg, tokens)``            -> (logits, aux, caches)
+  * ``init_kv_cache(cfg, batch, max_len)`` / ``kv_cache_shapes``
+  * ``prefill`` / ``decode_step`` (update the caches in place)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+__all__ = [
+    "init_params",
+    "param_shapes",
+    "forward",
+    "init_kv_cache",
+    "kv_cache_shapes",
+    "prefill",
+    "decode_step",
+    "layer_groups",
+]
+
+Params = Dict
+
+
+def layer_groups(cfg: LMConfig) -> List[Tuple[int, bool]]:
+    """[(n_layers_in_group, is_moe_group)] — homogeneous layer groups."""
+    if cfg.moe and cfg.first_k_dense > 0:
+        return [(cfg.first_k_dense, False), (cfg.n_layers - cfg.first_k_dense, True)]
+    return [(cfg.n_layers, cfg.moe)]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zip_map(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    return fn(a, b)
+
+
+def _init_layer(gen, cfg: LMConfig, moe: bool, device: torch.device) -> Params:
+    if moe:
+        raise NotImplementedError(f"the MoE feed-forward {L._NOT_PORTED}")
+    return {
+        "attn_norm": torch.ones((cfg.d_model,), device=device),
+        "ffn_norm": torch.ones((cfg.d_model,), device=device),
+        "attn": L.init_attention(gen, cfg, device),
+        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, device),
+    }
+
+
+def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
+    """fp32 parameters drawn from a ``torch.Generator`` seeded with ``seed``
+    on ``device`` (``None``: the card; ``"meta"``: shapes only).
+
+    Scales follow the reference: dense weights N(0, 1/fan_in), the
+    embedding N(0, 0.02^2), the unembedding N(0, 1/d_model), norms 1.  The
+    draws are not JAX's; tests carry the reference's weights across with
+    :func:`repro_torch.interop.lm_params_from_numpy` instead.  Each layer is
+    drawn into its slot of the stacked group, so at most one layer exists
+    twice at a time.
+    """
+    device = resolve_device(device)
+    gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
+    groups = []
+    for n, moe in layer_groups(cfg):
+        stacked = None
+        for i in range(n):
+            layer = _init_layer(gen, cfg, moe, device)
+            if stacked is None:
+                stacked = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
+            _zip_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+            del layer
+        groups.append(stacked)
+    params = {
+        "embed": L._normal(gen, (cfg.vocab_size, cfg.d_model), device) * 0.02,
+        "final_norm": torch.ones((cfg.d_model,), device=device),
+        "groups": groups,
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L._normal(gen, (cfg.d_model, cfg.vocab_size), device) / math.sqrt(cfg.d_model)
+    return params
+
+
+def param_shapes(cfg: LMConfig) -> Params:
+    """The parameter tree as ``meta`` tensors (shape and dtype, no storage)."""
+    return init_params(cfg, device="meta")
+
+
+def _layer_apply(cfg: LMConfig, moe: bool, layer: Params, x, positions, cache, cache_index):
+    h, new_cache = L.attention_apply(
+        layer["attn"], cfg, L.rmsnorm(x, layer["attn_norm"], cfg.norm_eps), positions, cache, cache_index
+    )
+    x = x + h
+    hn = L.rmsnorm(x, layer["ffn_norm"], cfg.norm_eps)
+    if moe:
+        h, aux = L.moe_apply(layer["moe"], cfg, hn)
+    else:
+        h, aux = L.ffn_apply(layer["ffn"], cfg.ffn_activation, hn), 0.0
+    return x + h, aux, new_cache
+
+
+def forward(
+    params: Params,
+    cfg: LMConfig,
+    tokens,  # (b, s) integer tensor or array
+    caches: Optional[list] = None,
+    cache_index=None,
+    positions: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
+):
+    """Returns (logits, aux_loss, caches); the final hidden states instead of
+    logits when ``return_hidden``.  With ``caches``, the new keys and values
+    are written into them in place at ``cache_index``."""
+    dtype = getattr(torch, cfg.dtype)
+    embed = params["embed"]
+    tokens = torch.as_tensor(tokens, device=embed.device).long()
+    x = embed[tokens].to(dtype)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=embed.device)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=embed.device)
+    for g, (n, moe) in enumerate(layer_groups(cfg)):
+        stacked = params["groups"][g]
+        for i in range(n):
+            cache_l = None if caches is None else {k: c[i] for k, c in caches[g].items()}
+            x, aux, _ = _layer_apply(cfg, moe, _map(lambda p: p[i], stacked), x, positions,
+                                     cache_l, cache_index)
+            aux_total = aux_total + aux
+
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return x, aux_total, caches
+    unembed = params.get("unembed")
+    if unembed is None:
+        unembed = embed.T
+    return x @ unembed.to(dtype), aux_total, caches
+
+
+# ---------------------------------------------------------------------------
+# KV cache / serving
+# ---------------------------------------------------------------------------
+
+
+def _cache_layer_shape(cfg: LMConfig, batch: int, max_len: int):
+    if cfg.attention == "mla":
+        raise NotImplementedError(f"the MLA cache {L._NOT_PORTED}")
+    return {
+        "k": (batch, max_len, cfg.n_kv_heads, cfg.d_head),
+        "v": (batch, max_len, cfg.n_kv_heads, cfg.d_head),
+    }
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None) -> list:
+    """Zeroed caches, one dict per layer group: ``(n_layers, batch, max_len,
+    h_kv, d_head)`` tensors in ``dtype`` (default ``cfg.dtype``)."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    device = resolve_device(device)
+    shapes = _cache_layer_shape(cfg, batch, max_len)
+    return [
+        {k: torch.zeros((n,) + s, dtype=dtype, device=device) for k, s in shapes.items()}
+        for (n, _) in layer_groups(cfg)
+    ]
+
+
+def kv_cache_shapes(cfg: LMConfig, batch: int, max_len: int, dtype=None) -> list:
+    """The cache tree as ``meta`` tensors."""
+    return init_kv_cache(cfg, batch, max_len, dtype=dtype, device="meta")
+
+
+def prefill(params: Params, cfg: LMConfig, tokens, caches: list):
+    logits, _, new_caches = forward(params, cfg, tokens, caches=caches, cache_index=0)
+    return logits, new_caches
+
+
+def decode_step(params: Params, cfg: LMConfig, token, caches: list, index: int):
+    positions = torch.tensor([int(index)], device=params["embed"].device)
+    logits, _, new_caches = forward(
+        params, cfg, token, caches=caches, cache_index=index, positions=positions
+    )
+    return logits[:, -1], new_caches

@@ -9,21 +9,31 @@ PyTorch is installed.  Graphs have isolated trailing vertices (empty
 destination blocks) and ``n`` that is no multiple of any block size.
 Tolerances: the plain versions sum with ``index_add_``, whose CUDA atomics
 add in no fixed order, and the kernels contract multiply-adds into FMAs.
+The flash-attention kernel computes in fp32 like its plain version but
+takes ``exp2`` of pre-scaled scores and sums in another order (fp32:
+1e-4); in bf16 both outputs are rounded to bf16, one ulp of which is
+0.0156 at magnitude 2 (bf16: 1e-2 absolute and relative).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.granite_8b import SMOKE_CONFIG
 from repro_torch.core.colorsets import binom, build_split_table
 from repro_torch.core.counting import brute_force_colorful, build_counting_plan
 from repro_torch.core.engine import CountingEngine
 from repro_torch.core.graph import Graph, grid_graph, rmat_graph
 from repro_torch.core.templates import get_template
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.spmm_blocked.ops import prepare_operand, spmm_blocked
 from repro_torch.kernels.spmm_blocked.ref import spmm_ref
 from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, spmm_ema
 from repro_torch.kernels.spmm_ema.ref import spmm_ema_ref
+from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +99,57 @@ def test_blocked_engine_on_card_matches_edges_and_brute_force(card):
         raw = float(eng.raw_counts(c)[0]) / plan.automorphisms
         assert spmm_ema.launches > before  # every stage went through the fused kernel
         assert raw == brute_force_colorful(tiny, plan.template, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h_kv", [1, 2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel(card, causal, h_kv, d, dtype):
+    """h = 4 query heads over 1 (MQA), 2 (GQA) or 4 (MHA) kv heads; square,
+    ragged and rectangular sequences (causal is top-left aligned)."""
+    # bf16: one output rounding (<= 2^-7 relative) of values both sides
+    # compute in fp32; the absolute term stays far below typical outputs
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-4)
+    gen = torch.Generator(device=card).manual_seed(d + h_kv)
+    for b, sq, sk in ((2, 128, 128), (1, 100, 100), (2, 77, 200), (1, 130, 70)):
+        q = torch.randn((b, sq, 4, d), generator=gen, device=card).to(dtype)
+        k = torch.randn((b, sk, h_kv, d), generator=gen, device=card).to(dtype)
+        v = torch.randn((b, sk, h_kv, d), generator=gen, device=card).to(dtype)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert got.shape == q.shape and got.dtype == dtype
+        torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal), rtol=rtol, atol=atol)
+
+
+def test_flash_attention_raises_for_what_it_cannot_launch(card):
+    q = torch.zeros((1, 8, 2, 48), device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+
+
+def test_lm_forward_on_card_matches_cpu(card):
+    """granite-8b-smoke with ``attn_impl="flash"``: the card's forward, whose
+    attention is the kernel (one launch per layer), against the CPU's."""
+    cfg = dataclasses.replace(SMOKE_CONFIG, attn_impl="flash")
+    params = T.init_params(cfg, seed=0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 100))
+    want, _, _ = T.forward(params, cfg, tokens)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(card)
+
+    before = flash_attention.launches
+    got, _, _ = T.forward(to_card(params), cfg, tokens)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

@@ -10,7 +10,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 1. Card and build: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, and the build of every CUDA kernel of the port
    (``src/repro_torch/**/csrc/*.cu``), with the compiler's register and
-   spill report.
+   spill report for each kernel instantiation.
 2. The blocked SpMM kernel against its plain PyTorch version on the full
    R-MAT graph (2^20 vertices, 2^23 sampled edges), at 64 and 792 columns;
    ``torch.sparse.mm`` on the same CSR is timed as a yardstick (the port
@@ -27,16 +27,19 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 5. Exactness: on tiny grid and Erdos-Renyi graphs the ``blocked`` engine's
    raw counts, every stage through the fused kernel, equal the brute-force
    colorful counts.
-6. The flash-attention kernel against its plain version at granite-8b's
+6. The bf16 flash-attention kernel (tensor cores,
+   ``flash_attention_sm90.cu``) against its plain version at granite-8b's
    head geometry (h=32, h_kv=8, d=128, bf16, causal) at (b, s) = (4, 4096),
-   (1, 32768) and a ragged (2, 4000); ``F.scaled_dot_product_attention``
-   is timed as a yardstick (the port never calls it).
+   (1, 32768) and a ragged (2, 4000), with its achieved TFLOP/s;
+   ``F.scaled_dot_product_attention`` is timed as a yardstick (the port
+   never calls it).
 7. The LM main path: granite-8b at full width and depth with
    ``attn_impl="flash"`` and seeded random weights, ``forward`` on b=4,
    s=4096 tokens.  In fp32 its logits must agree with the ``sdpa`` forward
-   within 5e-5 of their largest magnitude; then the config's bf16 forward,
-   with the launch counters reset just before and read just after, must
-   launch the kernel once per layer and give finite logits.  Records
+   within 5e-5 of their largest magnitude, through the fp32 kernel alone
+   (no tensor-core launch); then the config's bf16 forward, with the launch
+   counters reset just before and read just after, must launch the
+   tensor-core kernel once per layer and give finite logits.  Records
    tokens/s, peak memory and a ``torch.profiler`` split.
 8. ``ServeEngine`` (fp32, 8 slots of 1024) answers 4 requests with 64-token
    prompts, token for token equal to offline greedy decoding through
@@ -159,6 +162,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_sm90_kernel<128>`` from its mangled name (the last
+    name of the nested name, and a first integer template argument)."""
+    import re
+
+    i, names = 3 if mangled.startswith("_ZN") else 2, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    arg = re.match(r"ILi(\d+)E", mangled[i:])
+    return (names[-1] + (f"<{arg[1]}>" if arg else "")) if names else mangled
+
+
 def build_kernels() -> None:
     from repro_torch.kernels import _build
 
@@ -167,9 +186,15 @@ def build_kernels() -> None:
     log(f"[build] {len(per_source)} sources compiled in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items()) or 'cached'})")
     for source in _build.KERNEL_SOURCES:
+        function = "?"
         for line in _build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {source.stem}: {line.strip()}")
+            if "Function properties for" in line:
+                function = kernel_name(line.split()[-1])
+            elif "Used" in line or "spill" in line:
+                log(f"[build] {source.stem} {function}: {line.strip()}")
+            elif "C7515" in line:   # ptxas serialised the wgmmas of a kernel
+                log(f"[build] {source.stem} {kernel_name(line.split()[-1].strip(chr(39)))}: "
+                    f"{line.split(':', 1)[-1].split(' in the function')[0].strip()}")
         _build.load(source)
 
 
@@ -476,7 +501,11 @@ def check_flash(cfg, shapes, device, reps=3) -> list:
         def plain():
             return flash_attention_ref(q, k, v, causal=True)
 
+        before = flash_attention.tensor_core_launches
         got = flash_attention(q, k, v, causal=True)
+        if flash_attention.tensor_core_launches != before + 1:
+            raise AssertionError(f"flash_attention b={b} s={s}: bf16 did not launch the "
+                                 f"tensor-core kernel")
         want = plain()
         got, want = got.float(), want.float()
         err = max_abs_err(got, want, FLASH_RTOL, f"flash_attention b={b} s={s}", atol=FLASH_ATOL)
@@ -487,9 +516,10 @@ def check_flash(cfg, shapes, device, reps=3) -> list:
         row = {"shape": f"b={b} s={s} h={h} h_kv={h_kv} d={d} bf16 causal", "max_abs_err": err,
                "max_rel_err": rel}
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * h_kv * d)   # q, o; k, v
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * b * h * s * s * d / 2,
-                                                    PEAK_BF16_FLOPS)
+        flops = 4 * b * h * s * s * d / 2
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
         row["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=True), reps)
+        row["tflops"] = flops / row["ms"] / 1e9
         row["plain_ms"] = time_ms(plain, 1)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
@@ -533,12 +563,13 @@ def lm_forward(cfg, device, reps=2):
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(LM_BATCH, LM_SEQ)), device=device)
 
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention.tensor_core_launches
     t0 = time.perf_counter()
     ref32, _, _ = T.forward(params, cfg32, tokens)
     torch.cuda.synchronize()
     fp32_s = time.perf_counter() - t0
-    fp32_launches = flash_attention.launches - before
+    fp32_launches = flash_attention.launches - before[0]
+    fp32_tensor_core = flash_attention.tensor_core_launches - before[1]
     sdpa32, _, _ = T.forward(params, dataclasses.replace(cfg32, attn_impl="sdpa"), tokens)
     scale = float(sdpa32.abs().max())
     diff = float((ref32 - sdpa32).abs().max())
@@ -546,19 +577,22 @@ def lm_forward(cfg, device, reps=2):
     if not (diff <= LOGITS_RTOL * scale) or not bool(torch.isfinite(ref32).all()):
         raise AssertionError(f"fp32 logits: flash vs sdpa max |diff| {diff:g} > "
                              f"{LOGITS_RTOL} x max |logits| {scale:g}")
-    if fp32_launches != cfg.n_layers:
-        raise AssertionError(f"fp32 forward launched flash_attention {fp32_launches} times, "
-                             f"not {cfg.n_layers}")
+    if fp32_launches != cfg.n_layers or fp32_tensor_core != 0:
+        raise AssertionError(f"fp32 forward launched flash_attention {fp32_launches} times "
+                             f"({fp32_tensor_core} on the tensor cores), not {cfg.n_layers} "
+                             f"(0 on the tensor cores)")
 
     cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
     torch.cuda.synchronize()
     flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
     logits, _, _ = T.forward(params, cfg16, tokens)
     torch.cuda.synchronize()
-    launches = {"flash_attention": flash_attention.launches}
-    if launches["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"bf16 forward launched flash_attention "
-                             f"{launches['flash_attention']} times, not {cfg.n_layers}")
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_tensor_core": flash_attention.tensor_core_launches}
+    if set(launches.values()) != {cfg.n_layers}:
+        raise AssertionError(f"bf16 forward launched flash_attention {launches}, not "
+                             f"{cfg.n_layers} times, all on the tensor cores")
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("bf16 logits are not finite")
     bf16_dev = float((logits.float() - ref32).abs().max())
@@ -747,13 +781,15 @@ def main(argv=None) -> int:
             main["launches"]["spmm_blocked"], spmm_rows,
         ),
         # times: one launch at the forward's shape (b=4, s=4096), which the
-        # bf16 forward launches once per layer
-        kernel_record(
+        # bf16 forward launches once per layer (the fp32 gate forward runs
+        # flash_attention.cu, checked by the logits gate)
+        dict(kernel_record(
             "flash_attention", "lm",
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention/kernel.py:30",
             lm["launches"]["flash_attention"], flash_rows, timed=flash_rows[:1],
-        ),
+        ), tensor_core_launches=lm["launches"]["flash_attention_tensor_core"],
+            fp32_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if args.out:

@@ -30,6 +30,7 @@ KERNEL_SOURCES = (
     _KERNELS_DIR / "spmm_blocked" / "csrc" / "spmm_blocked.cu",
     _KERNELS_DIR / "spmm_ema" / "csrc" / "spmm_ema.cu",
     _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_sm90.cu",
 )
 
 #: Headers every source may include (part of each library's hash).

@@ -1,4 +1,8 @@
-// FlashAttention-2 forward, causal or not, over (bh, s, d) tensors (sm_90a).
+// FlashAttention-2 forward for fp32 q, k, v in the model's (b, s, h, d)
+// layout, causal or not, on the CUDA cores (sm_90a).  bf16 inputs go to
+// csrc/flash_attention_sm90.cu (tensor cores); this design serves the fp32
+// forward, whose logits gate (within 5e-5 of max |logits| of fp32 sdpa)
+// rules out bf16 or TF32 tensor-core products.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py  flash_attention_kernel
 // (launched by flash_attention_call), the TPU kernel whose grid walks
@@ -9,31 +13,29 @@
 //
 // Semantics: scores, running max, normaliser and accumulator in fp32, scale
 // 1/sqrt(d), top-left causal alignment (query i sees keys j <= i), key tiles
-// strictly above the diagonal skipped.  Unlike the TPU kernel, keys at or
-// past the true key length `sk` are masked: the wrapper pads K/V with zero
-// rows to a multiple of 64, and the TPU kernel gives those rows weight
-// exp(0 - m) when causal=false.  Causal results are the same either way.
+// strictly above the diagonal skipped.  Query head hq reads kv head
+// hq / (h / h_kv) in place, with the caller's batch/row/head strides.  Rows
+// past sq or sk load as zeros, keys at or past `sk` are masked (the TPU
+// kernel gives its zero padding weight exp(0 - m) when causal=false), and
+// output rows past sq are never written.
 //
-// Bound: operations.  At the LM's shapes (s = 4096, d = 128) a CTA does
-// 2 * 64 * 64 * d multiply-adds per key tile against 2 * 64 * d * 2 bytes
-// read, far above the card's ops-per-byte line.  This first design runs the
-// two products on the fp32 CUDA cores (67 TFLOP/s), not the tensor cores
-// (989 TFLOP/s bf16), so it can reach at most ~7% of the bf16 bound;
-// wgmma, TMA and a bf16 P are later work.
+// Bound: operations.  A CTA does 2 * 64 * 64 * d multiply-adds per key
+// tile against 2 * 64 * d * 4 bytes read, far above the card's ops-per-byte
+// line, and the fp32 CUDA cores (67 TFLOP/s) are the only fp32 rate
+// without rounding the inputs.
 //
 // Design: 256 threads as 16 x 16.  Thread (ty, tx) owns query rows
 // 4ty..4ty+3; for S = Q K^T it owns keys tx + 16j (j < 4), for O += P V it
 // owns D/16 output columns.  Q stays in shared memory for the whole CTA; K
 // and then V of each key tile are staged through one shared buffer (rows
 // padded by 4 floats, so the float4 reads of 8 neighbouring rows fall in
-// distinct banks), converted to fp32 once on load.  Row max is reduced over
-// the row's 16 threads with shuffles; each thread keeps a partial
-// normaliser, summed at the end.  P goes through shared memory transposed,
-// so a thread reads its 4 rows' weights of one key as one float4.
-// Shared memory at d = 128 is 85 KB, so two CTAs share an SM.  Tiles of
-// the causal diagonal's far end are launched first (heaviest work first).
+// distinct banks).  Row max is reduced over the row's 16 threads with
+// shuffles; each thread keeps a partial normaliser, summed at the end.  P
+// goes through shared memory transposed, so a thread reads its 4 rows'
+// weights of one key as one float4.  Shared memory at d = 128 is 85 KB, so
+// two CTAs share an SM.  Tiles of the causal diagonal's far end are
+// launched first (heaviest work first).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,28 +45,23 @@ constexpr int kBlock = 64;      // query rows per CTA, keys per tile
 constexpr int kThreads = 256;   // 16 x 16
 constexpr float kMasked = -1e30f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+// Element strides (batch, row, head) of q, k, v and out.
+struct Strides {
+  int64_t q[3], k[3], v[3], o[3];
+};
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// A (64 x D) tile of contiguous rows into shared memory rows of D + 4 floats.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src) {
+// A (64 x D) tile of rows `row_stride` apart into shared memory rows of
+// D + 4 floats; rows at or past `valid` are zeros.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+                                          int64_t row_stride, int valid) {
   constexpr int kVecPerRow = D / 4;
   for (int i = threadIdx.x; i < kBlock * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i - r * kVecPerRow) * 4;
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = load4(src + static_cast<int64_t>(r) * D + c);
+    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) =
+        r < valid ? *reinterpret_cast<const float4*>(src + r * row_stride + c)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -80,11 +77,11 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       int sq_pad, int sk_pad, int sk, int causal,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       Strides st, int h, int group, int sq, int sk, int causal,
                        float scale_log2) {
   constexpr int LD = D + 4;            // Q and K/V rows in shared memory
   constexpr int LDP = kBlock + 4;      // rows of P^T
@@ -99,12 +96,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
+  const int bi = blockIdx.x / h;
+  const int hq = blockIdx.x - bi * h;
+  const int hkv = hq / group;
   const int qt = gridDim.y - 1 - blockIdx.y;   // heaviest causal tiles first
   const int q0 = qt * kBlock;
-  const int64_t q_base = (static_cast<int64_t>(blockIdx.x) * sq_pad + q0) * D;
-  const int64_t kv_base = static_cast<int64_t>(blockIdx.x) * sk_pad * D;
+  const float* qp = q + bi * st.q[0] + q0 * st.q[1] + hq * st.q[2];
+  const float* kp = k + bi * st.k[0] + hkv * st.k[2];
+  const float* vp = v + bi * st.v[0] + hkv * st.v[2];
 
-  load_tile<D>(sQ, q + q_base);
+  load_tile<D>(sQ, qp, st.q[1], sq - q0);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -121,7 +122,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlock;
     __syncthreads();   // the previous tile's V and P^T reads are done
-    load_tile<D>(sKV, k + kv_base + static_cast<int64_t>(k0) * D);
+    load_tile<D>(sKV, kp + k0 * st.k[1], st.k[1], sk - k0);
     __syncthreads();
 
     float s[4][4];
@@ -180,7 +181,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       *reinterpret_cast<float4*>(sPt + (tx + 16 * j) * LDP + ty * 4) =
           make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
     __syncthreads();   // S is done with K; P^T is complete
-    load_tile<D>(sKV, v + kv_base + static_cast<int64_t>(k0) * D);
+    load_tile<D>(sKV, vp + k0 * st.v[1], st.v[1], sk - k0);
     __syncthreads();
 
 #pragma unroll 4
@@ -213,58 +214,62 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float inv = 1.f / fmaxf(row_sum16(l[i]), 1e-30f);
-    T* o = out + q_base + static_cast<int64_t>(ty * 4 + i) * D;
+    const int row = q0 + ty * 4 + i;
+    if (row >= sq) continue;
+    float* o = out + bi * st.o[0] + row * st.o[1] + hq * st.o[2];
 #pragma unroll
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         const int col = kVec == 4 ? g * 64 + tx * 4 + e : g * 16 + tx;
-        store1(o + col, acc[i][g * kVec + e] * inv);
+        o[col] = acc[i][g * kVec + e] * inv;
       }
   }
 }
 
-template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq_pad, int sk_pad, int sk, int causal, cudaStream_t stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* out, const Strides& st, int b,
+           int sq, int sk, int h, int h_kv, int causal, cudaStream_t stream) {
   const int smem = (2 * kBlock * (D + 4) + kBlock * (kBlock + 4)) * static_cast<int>(sizeof(float));
-  auto kernel = flash_attention_kernel<D, T>;
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, sq_pad / kBlock);
+  const dim3 grid(b * h, (sq + kBlock - 1) / kBlock);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq_pad, sk_pad, sk, causal, scale_log2);
+  kernel<<<grid, kThreads, smem, stream>>>(q, k, v, out, st, h, h / h_kv, sq, sk, causal,
+                                           scale_log2);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* out, int bh,
-             int sq_pad, int sk_pad, int sk, int causal, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<16, T>(q, k, v, out, bh, sq_pad, sk_pad, sk, causal, stream);
-    case 32: return launch<32, T>(q, k, v, out, bh, sq_pad, sk_pad, sk, causal, stream);
-    case 64: return launch<64, T>(q, k, v, out, bh, sq_pad, sk_pad, sk, causal, stream);
-    case 128: return launch<128, T>(q, k, v, out, bh, sq_pad, sk_pad, sk, causal, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// q: (bh, sq_pad, d); k, v: (bh, sk_pad, d); out: (bh, sq_pad, d); all
-// contiguous, of one dtype (bf16 if `bf16`, else fp32).  Keys at or past
-// `sk` are masked.  Returns a cudaError_t.
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int bh, int sq_pad, int sk_pad,
-                                      int sk, int d, int causal, int bf16,
-                                      void* stream) {
-  if (bh <= 0 || sq_pad <= 0) return static_cast<int>(cudaSuccess);
-  if (sq_pad % kBlock || sk_pad % kBlock || sk <= 0 || sk > sk_pad ||
-      sq_pad / kBlock > 65535)
+// q: (b, sq, h, d), k and v: (b, sk, h_kv, d), out: (b, sq, h, d), all fp32
+// with unit stride on d.  `strides` holds the element strides (batch, row,
+// head) of q, k, v and out in that order, each a multiple of 4 (float4
+// loads).  Keys at or past `sk` are masked.  Returns a cudaError_t.
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
+                                      int b, int sq, int sk, int h, int h_kv, int d, int causal,
+                                      const int64_t* strides, void* stream) {
+  if (b <= 0 || sq <= 0 || h <= 0) return static_cast<int>(cudaSuccess);
+  if (sk <= 0 || h_kv <= 0 || h % h_kv || (sq + kBlock - 1) / kBlock > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  Strides st;
+  for (int i = 0; i < 3; ++i) {
+    st.q[i] = strides[i];
+    st.k[i] = strides[3 + i];
+    st.v[i] = strides[6 + i];
+    st.o[i] = strides[9 + i];
+  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(d, q, k, v, out, bh, sq_pad, sk_pad, sk, causal, s)
-              : dispatch<float>(d, q, k, v, out, bh, sq_pad, sk_pad, sk, causal, s);
+  switch (d) {
+    case 16: return launch<16>(qf, kf, vf, of, st, b, sq, sk, h, h_kv, causal, s);
+    case 32: return launch<32>(qf, kf, vf, of, st, b, sq, sk, h, h_kv, causal, s);
+    case 64: return launch<64>(qf, kf, vf, of, st, b, sq, sk, h, h_kv, causal, s);
+    case 128: return launch<128>(qf, kf, vf, of, st, b, sq, sk, h, h_kv, causal, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,19 +1,25 @@
-"""GQA-aware wrapper of the flash-attention kernel.
+"""GQA-aware wrapper of the flash-attention kernels.
 
 Takes model-layout tensors ``q: (b, sq, h, d)`` and ``k, v: (b, sk, h_kv,
-d)`` (after RoPE), repeats each kv head over its ``h // h_kv`` query heads,
-lays everything out as ``(b·h, s, d)`` and restores the layout afterwards.
-On a CUDA tensor the copy into that layout also pads the sequences with
-zero rows to a multiple of :data:`BLOCK`, and ``csrc/flash_attention.cu``
-runs (it masks the padded keys); each launch adds one to
-``flash_attention.launches``.  On a CPU tensor the plain version
-(:func:`repro_torch.kernels.flash_attention.ref.flash_attention_ref`)
-runs on the unpadded layout.  Any other device, or a shape or dtype the
-kernel does not take, raises.
+d)`` (after RoPE) and returns ``out: (b, sq, h, d)``, contiguous.  On CUDA
+tensors the kernels read q, k and v where they lie, through their batch,
+row and head strides (query head ``hq`` reads kv head ``hq // (h //
+h_kv)``), and write ``out`` directly: the wrapper makes no copy.
 
-The kernel's tile is fixed at 64 queries by 64 keys, so the reference's
-``block_q`` / ``block_k`` (TPU tiling) and ``interpret`` have no
-counterpart here.
+- bf16: ``csrc/flash_attention_sm90.cu``, both products on the tensor cores
+  (wgmma, TMA loads); adds one to ``flash_attention.tensor_core_launches``.
+- fp32: ``csrc/flash_attention.cu``, both products on the fp32 CUDA cores
+  (the fp32 forward's logits gate rules out rounding the inputs).
+
+Either launch adds one to ``flash_attention.launches``.  On a CPU tensor
+the plain version
+(:func:`repro_torch.kernels.flash_attention.ref.flash_attention_ref`)
+runs.  Any other device, or a shape, dtype or layout the kernels do not
+take, raises.
+
+The kernels' tiles are fixed (bf16: 128 queries by 128 keys; fp32: 64 by
+64), so the reference's ``block_q`` / ``block_k`` (TPU tiling) and
+``interpret`` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -25,29 +31,48 @@ import torch
 
 from repro_torch.kernels import _build
 
-from .ref import flash_attention_ref, to_bh
+from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "BLOCK", "HEAD_DIMS", "SOURCE"]
+__all__ = ["flash_attention", "HEAD_DIMS", "SOURCES"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 
-#: Query rows per CTA and keys per tile; must equal ``kBlock`` in the source.
-BLOCK = 64
+#: The kernel of each input dtype and its C entry point.
+SOURCES = {
+    torch.bfloat16: (_CSRC / "flash_attention_sm90.cu", "flash_attention_sm90_launch"),
+    torch.float32: (_CSRC / "flash_attention.cu", "flash_attention_launch"),
+}
 
-#: Head dims the kernel is instantiated for (the smoke configs use 16).
+#: Head dims the kernels are instantiated for (the smoke configs use 16).
 HEAD_DIMS = (16, 32, 64, 128)
 
-_DTYPES = (torch.float32, torch.bfloat16)
 
-
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    fn = lib.flash_attention_launch
+def _entry(dtype: torch.dtype):
+    source, name = SOURCES[dtype]
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), p]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _strides(x: torch.Tensor, align: int) -> list:
+    """Element strides (batch, row, head) of a ``(b, s, n, d)`` tensor.  A
+    dimension of extent 1 is never stepped, so its stride is replaced by
+    the dense one (the tensor maps still need it aligned).  Raises unless
+    ``d`` has unit stride and the others, and the pointer, are aligned to
+    ``align`` elements (16 bytes: float4 loads and TMA)."""
+    if x.stride(-1) != 1:
+        raise ValueError(f"flash_attention needs unit stride on the head dim; got {x.stride()}")
+    out = []
+    for i in range(3):
+        dense = x.shape[i + 1 :].numel()
+        out.append(x.stride(i) if x.shape[i] > 1 else dense)
+    if any(s % align for s in out) or x.data_ptr() % 16:
+        raise ValueError(f"flash_attention needs 16-byte aligned rows and heads; got strides "
+                         f"{x.stride()} at address {x.data_ptr():#x}")
+    return out
 
 
 def flash_attention(
@@ -69,8 +94,8 @@ def flash_attention(
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes one of {_DTYPES} for q, k and v; got "
+    if q.dtype not in SOURCES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes one of {tuple(SOURCES)} for q, k and v; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
@@ -78,19 +103,22 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    sq_pad = -(-sq // BLOCK) * BLOCK
-    sk_pad = -(-sk // BLOCK) * BLOCK
-    group = h // h_kv
-    qb, kb, vb = to_bh(q, 1, sq_pad), to_bh(k, group, sk_pad), to_bh(v, group, sk_pad)
-    out = torch.empty_like(qb)
-    status = _library().flash_attention_launch(
-        qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-        b * h, sq_pad, sk_pad, sk, d, int(causal), int(q.dtype == torch.bfloat16),
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    align = 16 // q.element_size()
+    strides = (ctypes.c_int64 * 12)(*(s for x in (q, k, v, out) for s in _strides(x, align)))
+    status = _entry(q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, sq, sk, h, h_kv, d, int(causal), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attention")
     flash_attention.launches += 1
-    return out.view(b, h, sq_pad, d)[:, :, :sq].transpose(1, 2)
+    if q.dtype == torch.bfloat16:
+        flash_attention.tensor_core_launches += 1
+    return out
 
 
 flash_attention.launches = 0
+flash_attention.tensor_core_launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the flash-attention kernel (the CPU path and the
+"""Plain PyTorch version of the flash-attention kernels (the CPU path and the
 card's yardstick)."""
 
 from __future__ import annotations
@@ -36,15 +36,11 @@ def attention_ref(
     return out
 
 
-def to_bh(x: torch.Tensor, group: int, s_pad: int) -> torch.Tensor:
-    """(b, s, n, d) -> (b·n·group, s_pad, d) in one copy: head ``j`` of the
-    result is head ``j // group`` of ``x`` (the GQA repeat), and rows past
-    ``s`` are zeros."""
+def to_bh(x: torch.Tensor, group: int) -> torch.Tensor:
+    """(b, s, n, d) -> (b·n·group, s, d) in one copy: head ``j`` of the
+    result is head ``j // group`` of ``x`` (the GQA repeat)."""
     b, s, n, d = x.shape
-    out = x.new_empty((b, n, group, s_pad, d))
-    out[:, :, :, :s] = x.transpose(1, 2).unsqueeze(2)
-    out[:, :, :, s:] = 0
-    return out.view(b * n * group, s_pad, d)
+    return x.transpose(1, 2).unsqueeze(2).expand(b, n, group, s, d).reshape(b * n * group, s, d)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,5 +50,5 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     group = h // h_kv
-    out = attention_ref(to_bh(q, 1, sq), to_bh(k, group, sk), to_bh(v, group, sk), causal=causal)
+    out = attention_ref(to_bh(q, 1), to_bh(k, group), to_bh(v, group), causal=causal)
     return out.view(b, h, sq, v.shape[-1]).transpose(1, 2)

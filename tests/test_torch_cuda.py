@@ -9,10 +9,12 @@ PyTorch is installed.  Graphs have isolated trailing vertices (empty
 destination blocks) and ``n`` that is no multiple of any block size.
 Tolerances: the plain versions sum with ``index_add_``, whose CUDA atomics
 add in no fixed order, and the kernels contract multiply-adds into FMAs.
-The flash-attention kernel computes in fp32 like its plain version but
-takes ``exp2`` of pre-scaled scores and sums in another order (fp32:
-1e-4); in bf16 both outputs are rounded to bf16, one ulp of which is
-0.0156 at magnitude 2 (bf16: 1e-2 absolute and relative).
+The fp32 flash-attention kernel computes in fp32 like its plain version
+but takes ``exp2`` of pre-scaled scores and sums in another order (fp32:
+1e-4).  The bf16 kernel runs its products on the tensor cores with P
+split into two bf16 parts (an fp32 P to about 2^-16), and both outputs
+are rounded to bf16, one ulp of which is 2^-7 of |want| (bf16: 1e-2
+relative, 1e-4 absolute, the gate of ``chip_smoke.py``).
 """
 
 import dataclasses
@@ -124,12 +126,59 @@ def test_flash_attention_kernel(card, causal, h_kv, d, dtype):
         torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal), rtol=rtol, atol=atol)
 
 
+def _flash_tolerance(dtype):
+    return dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 300, 300), (False, 256, 333), (False, 100, 130)])
+def test_flash_attention_granite_heads(card, causal, sq, sk, dtype):
+    """granite-8b's head geometry, h = 32 over h_kv = 8 at d = 128.  The
+    non-causal key lengths are no multiple of either kernel's key tile
+    (bf16: 128, fp32: 64), so the last tile masks keys past ``sk``."""
+    gen = torch.Generator(device=card).manual_seed(sk)
+    q = torch.randn((2, sq, 32, 128), generator=gen, device=card).to(dtype)
+    k = torch.randn((2, sk, 8, 128), generator=gen, device=card).to(dtype)
+    v = torch.randn((2, sk, 8, 128), generator=gen, device=card).to(dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got, flash_attention_ref(q, k, v, causal), **_flash_tolerance(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_reads_and_writes_the_model_layout(card, dtype):
+    """q, k and v may be strided views (here the heads of one fused
+    projection); the kernel reads them in place and writes a fresh
+    contiguous (b, sq, h, d) ``out``: the call allocates nothing of Q's
+    size beside it (no copy of q, k, v or out).  Only bf16 counts a
+    tensor-core launch."""
+    b, s, h, h_kv, d = 2, 200, 8, 2, 64
+    gen = torch.Generator(device=card).manual_seed(3)
+    qkv = torch.randn((b, s, h + 2 * h_kv, d), generator=gen, device=card).to(dtype)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h: h + h_kv], qkv[:, :, h + h_kv:]
+    assert not q.is_contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    before = flash_attention.launches, flash_attention.tensor_core_launches
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert out.shape == (b, s, h, d) and out.is_contiguous()
+    assert peak - out.numel() * out.element_size() < q.numel() * q.element_size()
+    assert flash_attention.launches == before[0] + 1
+    assert flash_attention.tensor_core_launches == before[1] + (dtype == torch.bfloat16)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, True), **_flash_tolerance(dtype))
+
+
 def test_flash_attention_raises_for_what_it_cannot_launch(card):
     q = torch.zeros((1, 8, 2, 48), device=card)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 64), device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 64, 2), device=card, dtype=torch.bfloat16).transpose(2, 3)
+    with pytest.raises(ValueError, match="unit stride"):
         flash_attention(q, q, q)
 
 

@@ -10,20 +10,31 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 1. Card and build: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions, and the build of every CUDA kernel of the port
    (``src/repro_torch/**/csrc/*.cu``), with the compiler's register and
-   spill report for each kernel instantiation.
+   spill report for each kernel instantiation.  Then the R-MAT graph (2^20
+   vertices, 2^23 sampled edges) and the edge-balanced partition both
+   counting kernels launch over: heavy rows, segments, light ranges, the
+   kernels' scratch bytes, and the most edge visits (edges x column tiles)
+   any warp makes on each u12 stage, counted on the host from the schedule
+   both libraries export (checked as they load); more than 32,768 fails
+   the run.
 2. The blocked SpMM kernel against its plain PyTorch version on the full
-   R-MAT graph (2^20 vertices, 2^23 sampled edges), at 64 and 792 columns;
-   ``torch.sparse.mm`` on the same CSR is timed as a yardstick (the port
-   never calls it).  Tree stages do not launch this kernel (only the bag
-   stages of non-tree templates will), so this phase is where it runs.
+   graph, at 64 and 792 columns, and a second launch bitwise equal to the
+   first; ``torch.sparse.mm`` on the same CSR is timed as a yardstick (the
+   port never calls it).  Tree stages do not launch this kernel (only the
+   bag stages of non-tree templates will), so this phase is where it runs.
 3. The fused SpMM+eMA kernel against its plain version on the full graph,
-   at every stage geometry the main path gives it (u12 at 2 colorings).
+   at every stage geometry the main path gives it (u12 at 2 colorings),
+   with the bitwise repeat; ``torch.sparse.mm`` on the passive state is
+   timed beside it as the yardstick of its SpMM half.
 4. The main path: ``CountingEngine(graph, [u12])`` with ``backend="auto"``
    (which must resolve to ``blocked``) counts one chunk of seeded colorings
    through ``count_colorings``; the launch counters are reset just before
    and read just after, and every kernel of the path (the fused one) must
-   have launched.  The same colorings go through the plain ``edges``
-   backend on the card, and the totals must agree.
+   have launched (``launches`` counts wrapper calls that launched,
+   ``device_launches`` the kernels those calls issued).  The same colorings go through the plain ``edges``
+   backend on the card, and the totals must agree.  Records the engine's
+   build time (the partition's part of it too), the kernels' scratch bytes
+   and the peak device memory.
 5. Exactness: on tiny grid and Erdos-Renyi graphs the ``blocked`` engine's
    raw counts, every stage through the fused kernel, equal the brute-force
    colorful counts.
@@ -90,6 +101,9 @@ EXACT_TEMPLATES = ("u3", "u5-2", "u6", "u7")
 KERNEL_RTOL = 1e-4
 #: Engine totals, ``blocked`` vs the plain ``edges`` path (same reasons).
 TOTALS_RTOL = 1e-4
+#: Most edge visits (edges x passive tiles) any warp may make on a stage of
+#: TEMPLATE on the smoke graph.
+VISIT_CAP = 32_768
 
 #: LM path: (b, s) of the flash checks, of the forward, and the serving run.
 FLASH_SHAPES = ((4, 4096), (1, 32768), (2, 4000))
@@ -163,8 +177,8 @@ def card_line() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """``flash_attention_sm90_kernel<128>`` from its mangled name (the last
-    name of the nested name, and a first integer template argument)."""
+    """``spmm_ema_kernel<4, 1, 32>`` from its mangled name (the last name of
+    the nested name, and its integer template arguments)."""
     import re
 
     i, names = 3 if mangled.startswith("_ZN") else 2, []
@@ -174,11 +188,17 @@ def kernel_name(mangled: str) -> str:
             j += 1
         names.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    arg = re.match(r"ILi(\d+)E", mangled[i:])
-    return (names[-1] + (f"<{arg[1]}>" if arg else "")) if names else mangled
+    args = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    targs = "<" + ", ".join(re.findall(r"Li(\d+)E", args[1])) + ">" if args else ""
+    return names[-1] + targs if names else mangled
 
 
 def build_kernels() -> None:
+    """Build every source; per source, one line with its kernel instances'
+    register range, and a line for each instance that spills or whose
+    ``wgmma``s ptxas serialised (C7515)."""
+    import re
+
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -186,46 +206,98 @@ def build_kernels() -> None:
     log(f"[build] {len(per_source)} sources compiled in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items()) or 'cached'})")
     for source in _build.KERNEL_SOURCES:
-        function = "?"
+        function, regs = "?", {}
         for line in _build.build_log(source).splitlines():
             if "Function properties for" in line:
                 function = kernel_name(line.split()[-1])
-            elif "Used" in line or "spill" in line:
+            elif "Used" in line and "registers" in line:
+                regs[function] = int(re.search(r"Used (\d+) registers", line)[1])
+            elif "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill stores"):
                 log(f"[build] {source.stem} {function}: {line.strip()}")
             elif "C7515" in line:   # ptxas serialised the wgmmas of a kernel
                 log(f"[build] {source.stem} {kernel_name(line.split()[-1].strip(chr(39)))}: "
                     f"{line.split(':', 1)[-1].split(' in the function')[0].strip()}")
+        if regs:
+            lo, hi = min(regs.values()), max(regs.values())
+            log(f"[build] {source.stem}: {len(regs)} kernel instances, {lo}-{hi} registers "
+                f"({max(regs, key=regs.get)} the most)")
         _build.load(source)
 
 
-def load_balance(graph, rows=64, warps=8) -> dict:
-    """Edges of the heaviest destination block and of the heaviest warp when
-    each block of ``rows`` vertices is walked by ``warps`` warps taking rows
-    ``w, w + warps, ...`` (the kernels' assignment at 64 rows per CTA), and
-    the sizes of the compact operand and of the reference's padded one."""
+def load_balance(graph, operand, geometries, bsz, widths) -> dict:
+    """The partition the kernels launch over (``operand.partition``): heavy
+    rows, segments, light ranges, and per fused stage and SpMM width the
+    most edge visits (edges walked serially x column tiles walked for) any
+    warp makes, counted on the host from the partition and the schedule
+    that both libraries export (checked first).  Beside them, figures worked
+    out here, not measured: the kernels' scratch bytes, the no-reuse gather
+    floor of each stage's SpMM half (``|E| * B * C_p * 4`` bytes at
+    :data:`PEAK_BYTES_PER_S`), the visits of a split by rows (one warp per
+    row, rows ``w, w + 8, ...`` of a 64-row block, every 64-column passive
+    tile in turn), and the sizes of the compact operand and of the
+    reference's padded one.  Raises if a fused stage exceeds
+    :data:`VISIT_CAP`."""
     import numpy as np
 
+    from repro_torch.core.colorsets import binom
+    from repro_torch.kernels.spmm_blocked import ops as blocked_ops
+    from repro_torch.kernels.spmm_ema import ops as ema_ops
+
+    for lib in (blocked_ops._library(), ema_ops._library()):
+        blocked_ops.check_schedule(lib)
+    part = operand.partition
+    e = operand.num_directed
     deg = graph.degrees().astype(np.int64)
+    rows, warps = 64, 8
     pad = (-graph.n) % rows
     per_row = np.concatenate([deg, np.zeros(pad, np.int64)]).reshape(-1, rows)
-    per_warp = per_row.reshape(per_row.shape[0], rows // warps, warps).sum(axis=1)
+    row_split_warp = int(per_row.reshape(per_row.shape[0], rows // warps, warps).sum(axis=1).max())
     # the reference's blocked-ELL operand at its block of 256: every
     # (dst-block, src-block) pair padded to the largest (three 4-byte arrays)
     n_blocks = -(-graph.n // 256)
     pair = (graph.dst // 256).astype(np.int64) * n_blocks + graph.src // 256
     pair_sizes = np.unique(pair, return_counts=True)[1]
-    return {
+    stages = []
+    for k, m, m_a in geometries:
+        c_p, c_a = binom(k, m - m_a), binom(k, m_a)
+        if not ema_ops.row_fits(c_p, c_a):
+            raise AssertionError(f"{TEMPLATE} stage {(k, m, m_a)} takes the wide path, which "
+                                 f"the visit count does not model")
+        rows_pass = ema_ops.kernel_geometry(c_p, c_a, blocked_ops.RANGE_ROWS)
+        v = blocked_ops.edge_visits(operand, c_p, rows_pass)
+        stages.append({"stage": [k, m, m_a], "c_p": c_p, "rows_per_pass": rows_pass,
+                       "max_warp_visits": v["max"], "light_warp_visits": v["light_warp"],
+                       "heavy_warp_visits": v["heavy_warp"],
+                       "row_split_warp_visits": row_split_warp * -(-c_p // 64),
+                       "scratch_bytes": ema_ops.scratch_bytes(operand, bsz, c_p),
+                       "gather_floor_ms": e * bsz * c_p * 4 / PEAK_BYTES_PER_S * 1e3})
+    spmm = [{"cols": c, "max_warp_visits": blocked_ops.edge_visits(operand, c)["max"],
+             "scratch_bytes": part.n_segments * c * 4} for c in widths]
+    out = {
         "blocked_ell_256_pairs": int(pair_sizes.size),
         "blocked_ell_256_max_pair": int(pair_sizes.max()),
         "blocked_ell_256_padded_bytes": int(pair_sizes.size * pair_sizes.max() * 12),
         "compact_operand_bytes": int((graph.num_directed + graph.n + 1) * 4),
-        "rows_per_block": rows,
-        "blocks": int(per_row.shape[0]),
-        "mean_block_edges": float(per_row.sum(axis=1).mean()),
-        "max_block_edges": int(per_row.sum(axis=1).max()),
-        "max_warp_edges": int(per_warp.max()),
-        "empty_blocks": int((per_row.sum(axis=1) == 0).sum()),
+        "heavy_degree": blocked_ops.HEAVY_DEGREE, "segment_edges": blocked_ops.SEGMENT_EDGES,
+        "range_rows": blocked_ops.RANGE_ROWS, "range_edges": blocked_ops.RANGE_EDGES,
+        "heavy_rows": part.n_heavy,
+        "heavy_edges": int(deg[deg > blocked_ops.HEAVY_DEGREE].sum()),
+        "segments": part.n_segments,
+        "light_ranges": part.n_ranges,
+        "partition_build_s": part.build_seconds,
+        "partition_bytes": int(sum(t.numel() * 4 for t in (
+            part.range_ptr, part.heavy_rows, part.heavy_slot, part.seg_ptr, part.seg_beg,
+            part.seg_end))),
+        "row_split_max_warp_edges": row_split_warp,
+        "fused_stages": stages,
+        "gather_floor_ms": sum(st["gather_floor_ms"] for st in stages),
+        "spmm_widths": spmm,
     }
+    worst = max(st["max_warp_visits"] for st in stages)
+    if worst > VISIT_CAP:
+        raise AssertionError(f"a warp makes {worst} edge visits on a {TEMPLATE} stage "
+                             f"(cap {VISIT_CAP})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +323,13 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> list:
     for c in widths:
         m = torch.rand((n, c), generator=gen, device=device)
         got = spmm_blocked(operand, m)
+        bitwise = bool(torch.equal(got, spmm_blocked(operand, m)))
+        if not bitwise:
+            raise AssertionError(f"spmm_blocked C={c}: two launches differ")
         want = spmm_ref(operand.src, operand.dst, n, m, col_chunk=64)
         err = max_abs_err(got, want, KERNEL_RTOL, f"spmm_blocked C={c}")
         del got, want
-        row = {"shape": f"n={n} C={c}", "max_abs_err": err}
+        row = {"shape": f"n={n} C={c}", "max_abs_err": err, "bitwise_repeatable": bitwise}
         nbytes = 2 * n * c * 4 + (n + 1) * 4 + e * 4
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, e * c)
         if device.type == "cuda":
@@ -292,6 +367,10 @@ def fused_geometries(template_name: str):
 
 
 def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
+    """Per stage: kernel vs plain version, two launches bitwise equal, and
+    the times of the kernel, the plain version and ``torch.sparse.mm`` on the
+    ``(n, B * C_p)`` passive state (``library_spmm_half_ms``: only the SpMM
+    half of the function; the port never calls it)."""
     import torch
 
     from repro_torch.core.colorsets import binom, build_split_table
@@ -300,6 +379,12 @@ def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
 
     n, e = operand.n, operand.num_directed
     gen = torch.Generator(device=device).manual_seed(1)
+    csr = None
+    if device.type == "cuda":
+        csr = torch.sparse_csr_tensor(
+            operand.row_ptr.long(), operand.src.long(),
+            torch.ones(e, dtype=torch.float32, device=device), size=(n, n),
+        )
     rows = []
     for k, m, m_a in geometries:
         table = build_split_table(k, m, m_a)
@@ -313,19 +398,24 @@ def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
                                 tables.idx_a, tables.idx_p, col_chunk=64)
 
         got = spmm_ema(operand, m_p, m_aa, tables)
+        bitwise = bool(torch.equal(got, spmm_ema(operand, m_p, m_aa, tables)))
+        if not bitwise:
+            raise AssertionError(f"spmm_ema (k,m,m_a)={(k, m, m_a)}: two launches differ")
         want = plain()
         err = max_abs_err(got, want, KERNEL_RTOL, f"spmm_ema (k,m,m_a)={(k, m, m_a)}")
         del got, want
         row = {"shape": f"k={k} m={m} m_a={m_a} B={bsz} C_p={c_p} C_a={c_a} "
                         f"n_out={table.n_out} splits={table.n_splits}",
-               "max_abs_err": err}
+               "max_abs_err": err, "bitwise_repeatable": bitwise}
         nbytes = (n * bsz * (c_p + c_a + table.n_out) * 4 + (n + 1) * 4 + e * 4
-                  + 2 * tables.ent_a.numel() * 4)
+                  + table.n_out * table.n_splits * 4)
         flops = e * bsz * c_p + 2 * n * bsz * table.n_out * table.n_splits
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
         if device.type == "cuda":
             row["ms"] = time_ms(lambda: spmm_ema(operand, m_p, m_aa, tables), reps)
             row["plain_ms"] = time_ms(plain, 1)
+            flat = m_p.reshape(n, bsz * c_p)
+            row["library_spmm_half_ms"] = time_ms(lambda: torch.sparse.mm(csr, flat), reps)
         log(f"[spmm_ema] {json.dumps(row)}")
         rows.append(row)
         del m_p, m_aa
@@ -383,7 +473,7 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     from repro_torch.core.engine import CountingEngine
     from repro_torch.core.templates import get_template
     from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
-    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+    from repro_torch.kernels.spmm_ema.ops import scratch_bytes, spmm_ema
 
     template = get_template(template_name)
     kwargs = {} if device.type == "cuda" else {"device": device}
@@ -397,12 +487,14 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-    spmm_ema.launches = 0
-    spmm_blocked.launches = 0
+    spmm_ema.launches = spmm_ema.device_launches = 0
+    spmm_blocked.launches = spmm_blocked.device_launches = 0
     t0 = time.perf_counter()
     est = engine.count_colorings(colors)  # returns on the host: synchronised
     run_s = time.perf_counter() - t0
     launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+    device_launches = {"spmm_ema": spmm_ema.device_launches,
+                       "spmm_blocked": spmm_blocked.device_launches}
 
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     profile = device_profile(lambda: engine.count_colorings(colors)) if with_profile else None
@@ -428,11 +520,16 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
         "chunk_size": engine.chunk_size,
         "colorings": int(colors.shape[0]),
         "engine_build_s": build_s,
+        "partition_build_s": engine.backend_impl.operand.partition.build_seconds,
+        "kernel_scratch_bytes": max(
+            scratch_bytes(engine.backend_impl.operand, engine.chunk_size, t.c_p)
+            for t in engine.backend_impl._fused_tables.values()),
         "seconds_per_coloring": run_s / colors.shape[0],
         "plain_edges_seconds_per_coloring": plain_s / colors.shape[0],
         "max_memory_allocated": peak,
         "predicted_peak_bytes": engine.predicted_peak_bytes(),
         "launches": launches,
+        "device_launches": device_launches,
         "profile": profile,
         "estimates": est[:, 0].tolist(),
         "raw_totals": raw[:, 0].tolist(),
@@ -743,11 +840,13 @@ def main(argv=None) -> int:
     graph = rmat_graph(**GRAPH_SPEC)
     log(f"[graph] rmat n={graph.n} directed edges={graph.num_directed} "
         f"max degree={graph.max_degree()} in {time.perf_counter() - t0:.1f} s")
-    log(f"[graph] {json.dumps(load_balance(graph))}")
     operand = prepare_operand(graph, device)
+    geometries = fused_geometries(TEMPLATE)
+    partition = load_balance(graph, operand, geometries, EMA_CHUNK, SPMM_WIDTHS)
+    log(f"[partition] {json.dumps(partition)}")
 
     spmm_rows = check_spmm_blocked(operand, SPMM_WIDTHS, device)
-    ema_rows = check_spmm_ema(operand, fused_geometries(TEMPLATE), EMA_CHUNK, device)
+    ema_rows = check_spmm_ema(operand, geometries, EMA_CHUNK, device)
     del operand
     torch.cuda.empty_cache()
 
@@ -769,17 +868,18 @@ def main(argv=None) -> int:
     log(f"[time] LM phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
-        kernel_record(
+        dict(kernel_record(
             "spmm_ema", "counting", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
             "src/repro/kernels/spmm_ema/kernel.py:48", main["launches"]["spmm_ema"],
             ema_rows,
-        ),
-        kernel_record(
+        ), library_spmm_half_ms=sum(r["library_spmm_half_ms"] for r in ema_rows),
+            device_launches=main["device_launches"]["spmm_ema"]),
+        dict(kernel_record(
             "spmm_blocked", "counting",
             "src/repro_torch/kernels/spmm_blocked/csrc/spmm_blocked.cu",
             "src/repro/kernels/spmm_blocked/kernel.py:62",
             main["launches"]["spmm_blocked"], spmm_rows,
-        ),
+        ), device_launches=main["device_launches"]["spmm_blocked"]),
         # times: one launch at the forward's shape (b=4, s=4096), which the
         # bf16 forward launches once per layer (the fp32 gate forward runs
         # flash_attention.cu, checked by the logits gate)
@@ -795,7 +895,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "main": main, "lm": lm, "serve": served, "kernels": kernels},
+            {"card": card, "partition": partition, "main": main, "lm": lm, "serve": served,
+             "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

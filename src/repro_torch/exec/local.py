@@ -221,14 +221,16 @@ class BlockedEllBackend(LocalBackend):
     """The CUDA kernels over the compact edge operand (large graphs on a card).
 
     Each stage is ONE :func:`repro_torch.kernels.spmm_ema.ops.spmm_ema`
-    launch: per destination block the kernel accumulates the aggregate in
-    shared memory, one passive-column tile at a time, and consumes it in the
-    eMA before the next tile — the aggregate product never reaches device
-    memory.  Every tree stage takes this path, the one-hot leaf's narrow
-    passive included (the kernel masks the lanes past a tile's columns).
-    :meth:`spmm` is the blocked SpMM kernel
-    (:func:`repro_torch.kernels.spmm_blocked.ops.spmm_blocked`); tree stages
-    never call it.
+    call.  The operand carries an edge-balanced partition, built once here on
+    the host (``self.operand.partition``): hub rows are cut into segments
+    whose aggregate the whole grid computes first, and the other rows are
+    packed into short ranges whose whole passive aggregate lives only in one
+    CTA's shared memory and is consumed there by the eMA, so the aggregate
+    product of a light row never reaches device memory.  Every tree stage
+    takes this path, the one-hot leaf's narrow passive included (a warp then
+    loads several edges per instruction).  :meth:`spmm` is the blocked SpMM
+    kernel (:func:`repro_torch.kernels.spmm_blocked.ops.spmm_blocked`) over
+    the same partition; tree stages never call it.
 
     Both kernels take fp32; under the bf16 policy the states are cast to
     fp32 before each launch, as the reference's blocked path does.  On CPU
@@ -242,7 +244,7 @@ class BlockedEllBackend(LocalBackend):
         from repro_torch.kernels.spmm_blocked.ops import prepare_operand
         from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables
 
-        self._operand = prepare_operand(engine.graph, engine.device)
+        self.operand = prepare_operand(engine.graph, engine.device)
         self._fused_tables = {}
         for tables in self.stage_tables.values():
             key = (tables.k, tables.m, tables.m_a)
@@ -260,7 +262,7 @@ class BlockedEllBackend(LocalBackend):
 
         n, b, c = m.shape
         out = spmm_blocked(
-            self._operand, m.reshape(n, b * c).to(torch.float32).contiguous()
+            self.operand, m.reshape(n, b * c).to(torch.float32).contiguous()
         )
         return out.reshape(n, b, c).to(self.engine.policy.accum_dtype)
 
@@ -269,7 +271,7 @@ class BlockedEllBackend(LocalBackend):
 
         self.engine.counters["passive_aggregations"] += 1
         out = spmm_ema(
-            self._operand,
+            self.operand,
             m_p.to(torch.float32).contiguous(),
             m_a.to(torch.float32).contiguous(),
             self._fused_tables[(tables.k, tables.m, tables.m_a)],

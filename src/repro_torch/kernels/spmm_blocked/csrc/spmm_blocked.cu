@@ -13,86 +13,116 @@
 // of vertex v are src[row_ptr[v] .. row_ptr[v + 1]).
 //
 // Bound: the gathers.  Each edge reads one C-wide row of M, so the kernel
-// moves about |E| * C * 4 bytes from L2/HBM against n * C * 4 bytes of
-// output; the adds are one per gathered float, far below the fp32 rate.
+// moves up to |E| * C * 4 bytes from L2/HBM (less where L2 keeps a hub's
+// sources) against n * C * 4 bytes of output; the adds are one per gathered
+// float, far below the fp32 rate.  What keeps a kernel from that bound on
+// R-MAT graphs is their skew: split by rows, one warp walks a whole hub row
+// (degree 39,733 on the smoke graph) while the rest of the card idles.
 //
-// Design: each CTA owns ROWS destination vertices and one tile of TILE_COLS
-// columns (grid.y), so no two CTAs write the same output and no atomics or
-// second pass exist.  A warp owns one destination row at a time and walks
-// its edges in order; lane l accumulates columns l and l + 32 of the tile in
-// registers, so every gather of a row is one or two coalesced 128-byte
-// segments.  Four edges are in flight per warp to hide gather latency.
-// Sums run in edge order, so the result does not depend on launch order.
-// Rows with no edges write zeros.  Hub rows make some CTAs much longer than
-// others; splitting heavy rows is left to a later kernel.
+// Design: the edge-balanced partition (../ops.py, EdgePartition; shared
+// edge walks in ../../csrc/edge_walk.cuh).
+// * Launch 1, heavy blocks first: each warp takes one (segment, column tile)
+//   of a heavy row and writes its partial sums to a scratch row of
+//   `partials` (n_segments x C, allocated by the wrapper).  Then one block
+//   per light range: its warps take (row, column tile) items round-robin,
+//   walk the row's edges and write the output row tile directly.  Heavy rows
+//   are skipped there; rows with no edges write zeros.
+// * Launch 2: each heavy row's output is the sum of its segments' partials
+//   in segment order.
+// No float atomics and no order that depends on timing: two launches on the
+// same inputs give the same bits.  A warp walks at most max(segment,
+// range edges) x tiles edges, whatever the degree of the hub.  The entry
+// point reports in *launched how many kernels it issued (1, or 2 with heavy
+// rows).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "../../csrc/edge_walk.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 32;       // destination rows per CTA
-constexpr int kTileCols = 64;   // columns per CTA (two per lane)
+using namespace edge_walk;
 
-__global__ void __launch_bounds__(kWarps * 32)
-spmm_blocked_kernel(const int* __restrict__ row_ptr,
-                    const int* __restrict__ src,
-                    int n,
-                    const float* __restrict__ m,
-                    int c,
+template <int V, int K, int L>
+__global__ void __launch_bounds__(kThreads)
+spmm_blocked_kernel(int heavy_blocks, int n_heavy_items, const int* __restrict__ seg_beg,
+                    const int* __restrict__ seg_end, float* __restrict__ partials,
+                    const int* __restrict__ range_ptr, const int* __restrict__ row_ptr,
+                    const int* __restrict__ heavy_slot, const int* __restrict__ src,
+                    const float* __restrict__ m, int c, int n_tiles,
                     float* __restrict__ out) {
+  using W = Walk<V, K, L>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int c0 = blockIdx.y * kTileCols;
-  const int col0 = c0 + lane;
-  const int col1 = c0 + lane + 32;
-  const bool ok0 = col0 < c;
-  const bool ok1 = col1 < c;
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int v = blockIdx.x * kRows + r;
-    if (v >= n) break;
-    const int beg = row_ptr[v];
-    const int end = row_ptr[v + 1];
-    float acc0 = 0.f, acc1 = 0.f;
-    int e = beg;
-    for (; e + 4 <= end; e += 4) {
-      const int64_t s0 = src[e], s1 = src[e + 1], s2 = src[e + 2], s3 = src[e + 3];
-      const float* r0 = m + s0 * c;
-      const float* r1 = m + s1 * c;
-      const float* r2 = m + s2 * c;
-      const float* r3 = m + s3 * c;
-      if (ok0) {
-        const float x0 = __ldg(r0 + col0), x1 = __ldg(r1 + col0);
-        const float x2 = __ldg(r2 + col0), x3 = __ldg(r3 + col0);
-        acc0 += x0; acc0 += x1; acc0 += x2; acc0 += x3;
-      }
-      if (ok1) {
-        const float x0 = __ldg(r0 + col1), x1 = __ldg(r1 + col1);
-        const float x2 = __ldg(r2 + col1), x3 = __ldg(r3 + col1);
-        acc1 += x0; acc1 += x1; acc1 += x2; acc1 += x3;
-      }
-    }
-    for (; e < end; ++e) {
-      const float* row = m + static_cast<int64_t>(src[e]) * c;
-      if (ok0) acc0 += __ldg(row + col0);
-      if (ok1) acc1 += __ldg(row + col1);
-    }
-    float* o = out + static_cast<int64_t>(v) * c;
-    if (ok0) o[col0] = acc0;
-    if (ok1) o[col1] = acc1;
+  if (static_cast<int>(blockIdx.x) < heavy_blocks) {
+    const int item = blockIdx.x * kWarps + warp;
+    if (item < n_heavy_items)
+      heavy_item<V, K, L>(item, n_tiles, seg_beg, seg_end, src, m, c, partials, lane);
+    return;
+  }
+  const int range = blockIdx.x - heavy_blocks;
+  const int r0 = range_ptr[range];
+  const int items = (range_ptr[range + 1] - r0) * n_tiles;
+  for (int item = warp; item < items; item += kWarps) {
+    const int rr = item / n_tiles;
+    const int t = item - rr * n_tiles;
+    const int v = r0 + rr;
+    if (heavy_slot[v] >= 0) continue;  // written by the reduction
+    W w(lane, t * W::kWidth, c);
+    w.run(src, row_ptr[v], row_ptr[v + 1], m, c, lane);
+    w.store(out + static_cast<int64_t>(v) * c, lane);
   }
 }
+
+struct Launch {
+  const int* row_ptr;
+  const int* src;
+  const float* m;
+  int c;
+  float* out;
+  int n_ranges;
+  const int* range_ptr;
+  const int* heavy_slot;
+  int n_heavy;
+  const int* heavy_rows;
+  const int* seg_ptr;
+  int n_segments;
+  const int* seg_beg;
+  const int* seg_end;
+  float* partials;
+  cudaStream_t stream;
+  int* launched;
+
+  template <int V, int K, int L>
+  cudaError_t run() const {
+    const int n_tiles = (c + Walk<V, K, L>::kWidth - 1) / Walk<V, K, L>::kWidth;
+    const int n_heavy_items = n_segments * n_tiles;
+    const int heavy_blocks = (n_heavy_items + kWarps - 1) / kWarps;
+    spmm_blocked_kernel<V, K, L><<<heavy_blocks + n_ranges, kThreads, 0, stream>>>(
+        heavy_blocks, n_heavy_items, seg_beg, seg_end, partials, range_ptr, row_ptr,
+        heavy_slot, src, m, c, n_tiles, out);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+    if (n_heavy == 0) return err;
+    err = launch_heavy_reduce(seg_ptr, heavy_rows, n_heavy, partials, c, out, stream);
+    if (err == cudaSuccess) ++*launched;
+    return err;
+  }
+};
 
 }  // namespace
 
 extern "C" int spmm_blocked_launch(const int* row_ptr, const int* src, int n,
-                                   const float* m, int c, float* out,
-                                   void* stream) {
+                                   const float* m, int c, float* out, int n_ranges,
+                                   const int* range_ptr, const int* heavy_slot,
+                                   int n_heavy, const int* heavy_rows,
+                                   const int* seg_ptr, int n_segments,
+                                   const int* seg_beg, const int* seg_end,
+                                   float* partials, void* stream, int* launched) {
+  *launched = 0;
   if (n <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
-  dim3 grid((n + kRows - 1) / kRows, (c + kTileCols - 1) / kTileCols);
-  spmm_blocked_kernel<<<grid, kWarps * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(row_ptr, src, n,
-                                                             m, c, out);
-  return static_cast<int>(cudaGetLastError());
+  const void* ptrs[] = {m, out, partials};
+  const Launch launch{row_ptr, src, m, c, out, n_ranges, range_ptr, heavy_slot,
+                      n_heavy, heavy_rows, seg_ptr, n_segments, seg_beg, seg_end,
+                      partials, static_cast<cudaStream_t>(stream), launched};
+  return static_cast<int>(dispatch(c, vector_width(c, ptrs, n_segments ? 3 : 2), launch));
 }

@@ -7,6 +7,13 @@ Every test here is marked ``cuda`` and skips without a card; on one, run::
 The file imports neither ``jax`` nor ``repro``, so it runs where only
 PyTorch is installed.  Graphs have isolated trailing vertices (empty
 destination blocks) and ``n`` that is no multiple of any block size.
+The counting kernels also run over partitions with small thresholds (set
+on the module's constants with ``monkeypatch``), so that hub rows,
+segments whose count is exact, and rows at the heavy threshold all occur
+on small graphs; two launches on the same inputs must give the same bits
+(no atomics, no timing-dependent order).  Kernel A's wide path (stages
+whose row does not fit shared memory) runs at u20's real widths and, under
+a small budget, at u12's.
 Tolerances: the plain versions sum with ``index_add_``, whose CUDA atomics
 add in no fixed order, and the kernels contract multiply-adds into FMAs.
 The fp32 flash-attention kernel computes in fp32 like its plain version
@@ -31,8 +38,10 @@ from repro_torch.core.graph import Graph, grid_graph, rmat_graph
 from repro_torch.core.templates import get_template
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.spmm_blocked import ops as blocked_ops
 from repro_torch.kernels.spmm_blocked.ops import prepare_operand, spmm_blocked
 from repro_torch.kernels.spmm_blocked.ref import spmm_ref
+from repro_torch.kernels.spmm_ema import ops as ema_ops
 from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, spmm_ema
 from repro_torch.kernels.spmm_ema.ref import spmm_ema_ref
 from repro_torch.models import transformer as T
@@ -67,7 +76,8 @@ def test_spmm_blocked_kernel(card, cols):
 
 @pytest.mark.parametrize("k,m,m_a,bsz", [(7, 4, 1, 3), (7, 7, 3, 2), (12, 6, 4, 1), (16, 9, 1, 1)])
 def test_spmm_ema_kernel(card, k, m, m_a, bsz):
-    """(16, 9, 1) has 11,440 outputs: more than one output tile."""
+    """(16, 9, 1) has 11,440 outputs and a 12,870-column passive: two rows
+    per pass."""
     g = _graph()
     op = prepare_operand(g, card)
     table = build_split_table(k, m, m_a)
@@ -80,6 +90,116 @@ def test_spmm_ema_kernel(card, k, m, m_a, bsz):
     assert spmm_ema.launches == before + 1
     want = spmm_ema_ref(op.src, op.dst, g.n, m_p, m_aa, tables.idx_a, tables.idx_p)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _hub_graph():
+    """R-MAT 3000 plus a star hub of degree 512 (64 segments of 8 under the
+    small partition) and isolated trailing vertices."""
+    g = rmat_graph(3000, 12000, seed=5)
+    hub, leaves = 3050, np.arange(0, 3000, 3000 // 512)[:512]
+    src = np.concatenate([g.src, leaves, np.full(leaves.size, hub)])
+    dst = np.concatenate([g.dst, np.full(leaves.size, hub), leaves])
+    order = np.lexsort((src, dst))
+    return Graph(n=3100, src=src[order].astype(np.int32), dst=dst[order].astype(np.int32))
+
+
+#: Small partitions (HEAVY_DEGREE, SEGMENT_EDGES, RANGE_ROWS, RANGE_EDGES):
+#: many heavy rows; T = 16 puts degree-16 rows at the threshold and
+#: degree-17 rows just above it.  The last is the default.
+_PARTITIONS = ((16, 8, 16, 64), (64, 128, 4, 96), None)
+
+
+def _hub_operand(card, part, monkeypatch):
+    if _PARTITIONS[part] is not None:
+        for name, value in zip(("HEAVY_DEGREE", "SEGMENT_EDGES", "RANGE_ROWS", "RANGE_EDGES"),
+                               _PARTITIONS[part]):
+            monkeypatch.setattr(blocked_ops, name, value)
+    g = _hub_graph()
+    return g, prepare_operand(g, card)
+
+
+@pytest.mark.parametrize("part", range(len(_PARTITIONS)))
+@pytest.mark.parametrize("cols", [1, 12, 24, 130, 792])
+def test_spmm_blocked_kernel_hub_rows(card, cols, part, monkeypatch):
+    g, op = _hub_operand(card, part, monkeypatch)
+    m = torch.rand((g.n, cols), device=card)
+    before = spmm_blocked.device_launches
+    got = spmm_blocked(op, m)
+    assert spmm_blocked.device_launches == before + (2 if op.partition.n_heavy else 1)
+    again = spmm_blocked(op, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # bitwise, launch after launch
+    torch.testing.assert_close(got, spmm_ref(op.src, op.dst, g.n, m), rtol=1e-4, atol=1e-5)
+    assert float(got[3051:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("part", range(len(_PARTITIONS)))
+@pytest.mark.parametrize(
+    "k,m,m_a,bsz",
+    [(12, 2, 1, 1), (12, 2, 1, 2), (12, 2, 1, 3), (12, 3, 1, 2), (12, 7, 1, 2), (12, 12, 5, 2),
+     (12, 6, 4, 3), (5, 2, 1, 1), (7, 4, 1, 3)],
+)
+def test_spmm_ema_kernel_hub_rows(card, k, m, m_a, bsz, part, monkeypatch):
+    """u12's stage geometries (the 12-column leaf, 66, 924 and 792 passive
+    columns, the 1-output root), a narrow odd-width passive (5 columns) and
+    a wide odd one (35), over heavy segments, light ranges and row passes."""
+    g, op = _hub_operand(card, part, monkeypatch)
+    _check_spmm_ema(card, g, op, k, m, m_a, bsz)
+
+
+def _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=False):
+    table = build_split_table(k, m, m_a)
+    tables = prepare_stage_tables(table.idx_a, table.idx_p, binom(k, m - m_a), binom(k, m_a), card)
+    assert tables.wide == wide
+    m_p = torch.rand((g.n, bsz, binom(k, m - m_a)), device=card)
+    m_aa = torch.rand((g.n, bsz, binom(k, m_a)), device=card)
+    before = spmm_ema.device_launches
+    got = spmm_ema(op, m_p, m_aa, tables)
+    assert spmm_ema.device_launches == before + (3 if op.partition.n_heavy else 1)
+    again = spmm_ema(op, m_p, m_aa, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = spmm_ema_ref(op.src, op.dst, g.n, m_p, m_aa, tables.idx_a, tables.idx_p,
+                        col_chunk=64)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert float(got[3051:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("part", [0, 2])
+@pytest.mark.parametrize("k,m,m_a,bsz", [(20, 11, 1, 1), (20, 7, 1, 2), (20, 18, 11, 1)])
+def test_spmm_ema_kernel_u20_wide_stages(card, k, m, m_a, bsz, part, monkeypatch):
+    """u20's stages whose row does not fit shared memory: a 184,756-column
+    passive (past 28,672 columns and the 16-bit packing), 38,760, and 77,520
+    passive beside 167,960 active columns; 1024-column passive tiles."""
+    g, op = _hub_operand(card, part, monkeypatch)
+    _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True)
+
+
+@pytest.mark.parametrize("part", range(len(_PARTITIONS)))
+@pytest.mark.parametrize(
+    "k,m,m_a,bsz,budget",
+    [(12, 2, 1, 1, 64), (12, 6, 4, 2, 2048), (12, 12, 5, 3, 4096), (12, 7, 1, 2, 2048)],
+)
+def test_spmm_ema_kernel_wide_path_at_u12_widths(card, k, m, m_a, bsz, budget, part,
+                                                 monkeypatch):
+    """The wide path forced by a small shared-memory budget and 256-column
+    passive tiles: the 12-column leaf (one row per pass), 66 passive beside
+    495 active columns (one tile), 792 and 924 columns (four tiles)."""
+    monkeypatch.setattr(ema_ops, "SMEM_BUDGET_BYTES", budget)
+    monkeypatch.setattr(ema_ops, "WIDE_TILE_COLS", 256)
+    g, op = _hub_operand(card, part, monkeypatch)
+    _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True)
+
+
+def test_kernel_libraries_walk_the_schedule_the_host_models(card):
+    """Both libraries export the tile choice and warp count that the visit
+    count (``edge_visits``) assumes; loading them checks every width up to
+    2048 columns."""
+    for lib in (blocked_ops._library(), ema_ops._library()):
+        blocked_ops.check_schedule(lib)
+        assert lib.edge_walk_warps() == blocked_ops.KERNEL_WARPS
+        assert lib.edge_walk_tile_width(792, 4) == 128
+        assert lib.edge_walk_tile_width(12, 4) == 16
 
 
 def test_blocked_engine_on_card_matches_edges_and_brute_force(card):

@@ -17,18 +17,27 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    any warp makes on each u12 stage, counted on the host from the schedule
    both libraries export (checked as they load); more than 32,768 fails
    the run.
-2. The blocked SpMM kernel against its plain PyTorch version on the full
+2. Colorings: the threefry draws of ``repro_torch.core.prng``
+   (``randint(fold_in(...))``, ``split``) equal known-answer vectors of
+   JAX's ``jax.random`` (written below; ``tests/test_torch_prng.py``
+   recomputes them with JAX), and the same draws on the card equal those on
+   the CPU, bit for bit, at the smoke graphs' sizes.  Then the committed
+   ``tableIII/rmat2k/*/subgraph2vec`` counts reproduce to their 4 digits
+   through the ``blocked`` engine, from ``benchmarks/bench_counting.py``'s
+   seeded draws.
+   The blocked SpMM kernel against its plain PyTorch version on the full
    graph, at 64 and 792 columns, and a second launch bitwise equal to the
    first; ``torch.sparse.mm`` on the same CSR is timed as a yardstick (the
-   port never calls it).  Tree stages do not launch this kernel (only the
-   bag stages of non-tree templates will), so this phase is where it runs.
+   port never calls it).  Tree stages do not launch this kernel; bag
+   extends do (phase 5b).
 3. The fused SpMM+eMA kernel against its plain version on the full graph,
    at every stage geometry the main path gives it (u12 at 2 colorings),
    with the bitwise repeat; ``torch.sparse.mm`` on the passive state is
    timed beside it as the yardstick of its SpMM half.
 4. The main path: ``CountingEngine(graph, [u12])`` with ``backend="auto"``
-   (which must resolve to ``blocked``) counts one chunk of seeded colorings
-   through ``count_colorings``; the launch counters are reset just before
+   (which must resolve to ``blocked``) counts one chunk of colorings drawn
+   from ``split(prng_key(0), chunk)`` through ``count_keys``; the launch
+   counters are reset just before
    and read just after, and every kernel of the path (the fused one) must
    have launched (``launches`` counts wrapper calls that launched,
    ``device_launches`` the kernels those calls issued).  The same colorings go through the plain ``edges``
@@ -36,8 +45,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    build time (the partition's part of it too), the kernels' scratch bytes
    and the peak device memory.
 5. Exactness: on tiny grid and Erdos-Renyi graphs the ``blocked`` engine's
-   raw counts, every stage through the fused kernel, equal the brute-force
-   colorful counts.
+   raw counts equal the brute-force colorful counts: tree templates, every
+   stage through the fused kernel, and the triangle, tailed triangle,
+   4-cycle, diamond and K4, every bag extend with an eliminated neighbor
+   through the blocked SpMM kernel.
+5b. Motif counting of non-tree templates: on R-MAT with 8192 vertices
+   (``benchmarks/bench_counting.py``'s rmat8k) two engines with
+   ``backend="auto"`` (which must resolve to ``blocked``), the 3-vertex
+   graphlets and four 4-vertex ones (two trees, the tailed triangle and the
+   4-cycle), count the colorings of ``split(prng_key(0), 4)`` through
+   ``count_keys``, with the launch counters reset just before and read just
+   after (both kernels must launch); totals per coloring within
+   ``TOTALS_RTOL`` of the ``edges`` engine on the same keys.  Records
+   seconds per coloring, peak memory against the cost model's prediction,
+   a ``torch.profiler`` split with the device's idle share, and, at every
+   bag width the engines launch the blocked SpMM kernel at (and at the
+   widths of one coloring), the kernel against its plain version with its
+   time, bound and ``torch.sparse.mm``'s time.
+5c. The counting service: one ``CountingService`` serves the same graph to
+   two tenants, the 3-vertex graphlets with an (epsilon, delta) target and
+   the four 4-vertex templates at 8 iterations, then repeats the second on
+   the warm engine, which must build nothing new; every query's estimates
+   equal ``CountingEngine.count_keys`` on its ``fold_in`` keys.
 6. The bf16 flash-attention kernel (tensor cores,
    ``flash_attention_sm90.cu``) against its plain version at granite-8b's
    head geometry (h=32, h_kv=8, d=128, bf16, causal) at (b, s) = (4, 4096),
@@ -88,12 +117,41 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 GRAPH_SPEC = dict(n=1 << 20, num_edges=8_388_608, seed=1)
 TEMPLATE = "u12"
 MEMORY_BUDGET_BYTES = 48 * 2**30
+#: Motif counting: the reference's rmat8k graph and two template sets.
+MOTIF_GRAPH_SPEC = dict(n=8192, num_edges=80_000, seed=2)
+MOTIF_SETS = (("graphlets3", ("g3-0", "g3-1")), ("graphlets4", ("g4-0", "g4-1", "g4-2", "g4-3")))
+MOTIF_KEYS = 4  # colorings of split(prng_key(0), MOTIF_KEYS)
+#: Exact counts on tiny graphs: trees, and the non-trees through bag stages.
+EXACT_BAG_TEMPLATES = ("triangle", "g4-2", "square", "diamond", "clique4")
 SPMM_WIDTHS = (64, 792)
 EMA_CHUNK = 2  # colorings per chunk at this budget (checked in phase 4)
-#: Kernels that each main path launches: tree counting, the LM forward.
+#: Kernels that the tree counting path launches (the motif path checks its
+#: own launches of both counting kernels).
 COUNTING_PATH_KERNELS = ("spmm_ema",)
-LM_PATH_KERNELS = ("flash_attention",)
 EXACT_TEMPLATES = ("u3", "u5-2", "u6", "u7")
+
+#: ``jax.random.randint(fold_in(PRNGKey(seed), data), (n,), 0, k)`` under
+#: JAX 0.9.0's defaults (threefry2x32, partitionable), keyed by (seed, data,
+#: n, k); ``tests/test_torch_prng.py`` recomputes them with JAX.
+KNOWN_COLORINGS = {
+    (0, 0, 16, 3): (1, 2, 1, 1, 1, 1, 1, 1, 1, 0, 1, 1, 1, 0, 2, 0),
+    (42, 7, 25, 12): (9, 0, 6, 7, 10, 2, 3, 7, 10, 7, 7, 0, 7, 1, 3, 2, 0, 1, 9, 5, 1, 7, 5,
+                      5, 5),
+    (2**31 + 5, 1, 9, 5): (1, 4, 3, 2, 4, 0, 1, 4, 1),
+    (7, 123456, 33, 4): (2, 0, 3, 3, 1, 3, 0, 1, 2, 1, 1, 2, 0, 2, 3, 3, 2, 0, 1, 2, 2, 0, 0,
+                         0, 1, 1, 0, 2, 2, 3, 2, 0, 0),
+}
+#: ``jax.random.split(PRNGKey(seed), num)``, keyed by (seed, num).
+KNOWN_SPLITS = {
+    (0, 4): ((1797259609, 2579123966), (928981903, 3453687069), (4146024105, 2718843009),
+             (2467461003, 3840466878)),
+    (17, 2): ((1410583977, 344060510), (677216225, 3396477011)),
+}
+#: The committed ``tableIII/rmat2k/<t>/subgraph2vec`` raw colorful totals
+#: (BENCH_counting.json, 4 digits), from ``benchmarks/bench_counting.py``'s
+#: draws: ``default_rng(0).integers(0, k, size=n)`` per template, in order.
+TABLE_III_GRAPH_SPEC = dict(n=2048, num_edges=20_000, seed=1)
+TABLE_III_COUNTS = {"u5-1": 7.065e08, "u5-2": 1.535e09, "u6": 5.603e10, "u7": 4.652e12}
 
 #: Kernel vs plain version: relative tolerance.  The plain versions sum
 #: with ``index_add_``, whose CUDA atomics add in no fixed order, and the
@@ -301,14 +359,76 @@ def load_balance(graph, operand, geometries, bsz, widths) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernel B
+# phase 2: colorings, the tableIII counts, kernel B
 # ---------------------------------------------------------------------------
 
 
-def check_spmm_blocked(operand, widths, device, reps=5) -> list:
+def check_known_colorings(device) -> dict:
+    """The port's threefry draws against JAX's known answers, then the same
+    draws on ``device`` against the CPU's, bit for bit, at the sizes of the
+    smoke graphs."""
     import torch
 
-    from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
+    from repro_torch.core.prng import fold_in, prng_key, randint, split
+
+    for (seed, data, n, k), want in KNOWN_COLORINGS.items():
+        got = randint(fold_in(prng_key(seed, device), data), (n,), 0, k).cpu().tolist()
+        if got != list(want):
+            raise AssertionError(f"randint(fold_in(prng_key({seed}), {data}), ({n},), 0, {k}) "
+                                 f"= {got}, JAX draws {list(want)}")
+    for (seed, num), want in KNOWN_SPLITS.items():
+        got = split(prng_key(seed, device), num).cpu().tolist()
+        if got != [list(w) for w in want]:
+            raise AssertionError(f"split(prng_key({seed}), {num}) = {got}, JAX draws {want}")
+    cpu = torch.device("cpu")
+    compared = 0
+    for n in (MOTIF_GRAPH_SPEC["n"], GRAPH_SPEC["n"]):
+        for k in (3, 4, 12):
+            keys = split(prng_key(k, cpu), MOTIF_KEYS)
+            want = randint(keys, (n,), 0, k)
+            got = randint(keys.to(device), (n,), 0, k).cpu()
+            folded = fold_in(keys.to(device), torch.arange(MOTIF_KEYS, device=device)).cpu()
+            if not (torch.equal(got, want)
+                    and torch.equal(folded, fold_in(keys, torch.arange(MOTIF_KEYS)))):
+                raise AssertionError(f"draws on {device} differ from the CPU's at n={n} k={k}")
+            compared += got.numel()
+    out = {"known_colorings": len(KNOWN_COLORINGS), "known_splits": len(KNOWN_SPLITS),
+           "device": str(device), "values_equal_to_cpu": compared}
+    log(f"[colorings] {json.dumps(out)}")
+    return out
+
+
+def table_iii_counts(device) -> dict:
+    """The rmat2k raw colorful totals of ``benchmarks/bench_counting.py``'s
+    tableIII rows through the ``blocked`` engine; each must print as the
+    committed 4 digits."""
+    import numpy as np
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.graph import rmat_graph
+    from repro_torch.core.templates import get_template
+
+    graph = rmat_graph(**TABLE_III_GRAPH_SPEC)
+    rng = np.random.default_rng(0)
+    out = {}
+    for tname, want in TABLE_III_COUNTS.items():
+        t = get_template(tname)
+        colors = rng.integers(0, t.k, size=graph.n)
+        got = float(CountingEngine(graph, [t], backend="blocked", device=device).raw_counts(colors)[0])
+        if f"{got:.3e}" != f"{want:.3e}":
+            raise AssertionError(f"tableIII/rmat2k/{tname}: count {got:.3e}, committed {want:.3e}")
+        out[tname] = got
+    log(f"[tableIII] rmat2k counts equal the committed ones to 4 digits: {json.dumps(out)}")
+    return out
+
+
+def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
+    """Kernel B against its plain version at each width; returns the rows
+    and, per shape, the grid the host partition sizes (not measured, so it
+    stays out of the rows)."""
+    import torch
+
+    from repro_torch.kernels.spmm_blocked.ops import check_int32_counts, spmm_blocked
     from repro_torch.kernels.spmm_blocked.ref import spmm_ref
 
     n, e = operand.n, operand.num_directed
@@ -319,7 +439,7 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> list:
             operand.row_ptr.long(), operand.src.long(),
             torch.ones(e, dtype=torch.float32, device=device), size=(n, n),
         )
-    rows = []
+    rows, grids = [], {}
     for c in widths:
         m = torch.rand((n, c), generator=gen, device=device)
         got = spmm_blocked(operand, m)
@@ -329,7 +449,9 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> list:
         want = spmm_ref(operand.src, operand.dst, n, m, col_chunk=64)
         err = max_abs_err(got, want, KERNEL_RTOL, f"spmm_blocked C={c}")
         del got, want
-        row = {"shape": f"n={n} C={c}", "max_abs_err": err, "bitwise_repeatable": bitwise}
+        row = {"shape": f"n={n} C={c}", "cols": c, "max_abs_err": err,
+               "bitwise_repeatable": bitwise}
+        grids[row["shape"]] = check_int32_counts(operand, c)["grid (heavy blocks + light ranges)"]
         nbytes = 2 * n * c * 4 + (n + 1) * 4 + e * 4
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, e * c)
         if device.type == "cuda":
@@ -337,10 +459,10 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> list:
             row["plain_ms"] = time_ms(
                 lambda: spmm_ref(operand.src, operand.dst, n, m, col_chunk=64), 2)
             row["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, m), reps)
-        log(f"[spmm_blocked] {json.dumps(row)}")
+        log(f"[spmm_blocked] {json.dumps(row)} grid_ctas={grids[row['shape']]}")
         rows.append(row)
         del m
-    return rows
+    return rows, grids
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +593,7 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     import torch
 
     from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
     from repro_torch.core.templates import get_template
     from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
     from repro_torch.kernels.spmm_ema.ops import scratch_bytes, spmm_ema
@@ -482,7 +605,7 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     build_s = time.perf_counter() - t0
     if engine.backend != "blocked":
         raise AssertionError(f"backend='auto' resolved to {engine.backend!r}, not 'blocked'")
-    colors = engine.draw_colorings(engine.chunk_size, seed=0)
+    keys = split(prng_key(0, device), engine.chunk_size)
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -490,14 +613,14 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     spmm_ema.launches = spmm_ema.device_launches = 0
     spmm_blocked.launches = spmm_blocked.device_launches = 0
     t0 = time.perf_counter()
-    est = engine.count_colorings(colors)  # returns on the host: synchronised
+    est = engine.count_keys(keys)  # returns on the host: synchronised
     run_s = time.perf_counter() - t0
     launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
     device_launches = {"spmm_ema": spmm_ema.device_launches,
                        "spmm_blocked": spmm_blocked.device_launches}
 
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
-    profile = device_profile(lambda: engine.count_colorings(colors)) if with_profile else None
+    profile = device_profile(lambda: engine.count_keys(keys)) if with_profile else None
     raw = est / engine._norm_factors.cpu().numpy()[None, :]
     if not np.all(np.isfinite(est)) or np.any(est < 0):
         raise AssertionError(f"{template_name}: totals not finite and >= 0: {est.tolist()}")
@@ -505,7 +628,7 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     plain = CountingEngine(graph, [template], backend="edges",
                            memory_budget_bytes=budget, **kwargs)
     t0 = time.perf_counter()
-    est_plain = plain.count_colorings(colors)
+    est_plain = plain.count_keys(keys)
     plain_s = time.perf_counter() - t0
     if not np.allclose(est, est_plain, rtol=TOTALS_RTOL, atol=0.0):
         raise AssertionError(f"blocked {est.tolist()} vs edges {est_plain.tolist()} "
@@ -518,14 +641,14 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
         "backend": engine.backend,
         "backend_reason": engine.backend_reason,
         "chunk_size": engine.chunk_size,
-        "colorings": int(colors.shape[0]),
+        "colorings": int(keys.shape[0]),
         "engine_build_s": build_s,
         "partition_build_s": engine.backend_impl.operand.partition.build_seconds,
         "kernel_scratch_bytes": max(
             scratch_bytes(engine.backend_impl.operand, engine.chunk_size, t.c_p)
             for t in engine.backend_impl._fused_tables.values()),
-        "seconds_per_coloring": run_s / colors.shape[0],
-        "plain_edges_seconds_per_coloring": plain_s / colors.shape[0],
+        "seconds_per_coloring": run_s / keys.shape[0],
+        "plain_edges_seconds_per_coloring": plain_s / keys.shape[0],
         "max_memory_allocated": peak,
         "predicted_peak_bytes": engine.predicted_peak_bytes(),
         "launches": launches,
@@ -550,26 +673,239 @@ def exactness(device) -> None:
     from repro_torch.core.counting import brute_force_colorful, build_counting_plan
     from repro_torch.core.engine import CountingEngine
     from repro_torch.core.graph import erdos_renyi_graph, grid_graph
-    from repro_torch.core.templates import get_template
+    from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
     from repro_torch.kernels.spmm_ema.ops import spmm_ema
 
     rng = np.random.default_rng(7)
     for gname, graph in (("grid5x7", grid_graph(5, 7)), ("er45", erdos_renyi_graph(45, 90, seed=3))):
-        for tname in EXACT_TEMPLATES:
-            t = get_template(tname)
+        for tname in EXACT_TEMPLATES + EXACT_BAG_TEMPLATES:
+            t = graphlet(tname)
             plan = build_counting_plan(t)
+            # tree stages go through the fused kernel, bag extends through
+            # the blocked SpMM kernel
+            kernel = spmm_ema if plan.partition is not None else spmm_blocked
             engine = CountingEngine(graph, [t], backend="blocked", device=device)
             for _ in range(2):
                 colors = rng.integers(0, t.k, size=graph.n)
-                before = spmm_ema.launches
+                before = kernel.launches
                 raw = float(engine.raw_counts(colors)[0]) / plan.automorphisms
-                if spmm_ema.launches <= before:
-                    raise AssertionError(f"{gname}/{tname}: the fused kernel was not launched")
+                if kernel.launches <= before:
+                    raise AssertionError(f"{gname}/{tname}: {kernel.__name__} was not launched")
                 want = brute_force_colorful(graph, t, colors)
                 if raw != want:
                     raise AssertionError(f"{gname}/{tname}: blocked {raw} != brute force {want}")
-    log(f"[exact] blocked raw counts, through the fused kernel, equal brute force "
-        f"on grid5x7 and er45 ({', '.join(EXACT_TEMPLATES)})")
+    log(f"[exact] blocked raw counts equal brute force on grid5x7 and er45: trees through "
+        f"the fused kernel ({', '.join(EXACT_TEMPLATES)}), non-trees through the blocked "
+        f"SpMM kernel ({', '.join(EXACT_BAG_TEMPLATES)})")
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: motif counting of non-tree templates (bag stages)
+# ---------------------------------------------------------------------------
+
+
+def bag_widths_of(record) -> list:
+    """The bag widths of a motif record's engine at one coloring."""
+    return [c // record["colorings_per_chunk"] for c in record["bag_widths"]]
+
+
+def graphlet(name):
+    from repro_torch.core.templates import connected_graphlets, get_template
+
+    by_name = {t.name: t for k in (3, 4) for t in connected_graphlets(k)}
+    return by_name[name] if name in by_name else get_template(name)
+
+
+def bag_widths(engine, bsz) -> list:
+    """Columns of each blocked-SpMM launch of one chunk of ``bsz``
+    colorings: per distinct bag extend with an eliminated neighbor (states
+    are shared by canon), ``n**(r_in - 1) * bsz * C(k, m_in)``."""
+    from repro_torch.core.colorsets import binom
+
+    n, seen, widths = engine.graph.n, set(), []
+    for cplan, canons in zip(engine.plan_ir.counting_plans, engine.plan_ir.canons):
+        if cplan.partition is not None:
+            continue
+        ops = cplan.bag_program.ops
+        for i, op in enumerate(ops):
+            if canons[i] in seen:
+                continue
+            seen.add(canons[i])
+            if op.kind == "extend" and op.spmm_vertex is not None:
+                src = ops[op.inputs[0]]
+                widths.append(n ** (len(src.axes) - 1) * bsz * binom(cplan.k, src.m))
+    return widths
+
+
+def motif_kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "spmm_blocked" in low:
+        return "kernel B (spmm_blocked)"
+    if "spmm_ema" in low or "heavy_segments" in low:
+        return "kernel A (spmm_ema)"
+    if "heavy_reduce" in low:
+        return "heavy-row reductions (A and B)"
+    if "copy" in low:
+        return "copies"
+    if "index" in low or "gather" in low:
+        return "gathers (index_select)"
+    if "reduce" in low:
+        return "sums (forget)"
+    return "other elementwise (masks, addcmul, threefry)"
+
+
+def motif_path(graph, device, budget) -> dict:
+    """Both motif engines through ``count_keys``, each held against the
+    ``edges`` engine on the same keys."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
+    from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
+    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+
+    keys = split(prng_key(0, device), MOTIF_KEYS)
+    records = []
+    launches_total = {"spmm_ema": 0, "spmm_blocked": 0}
+    device_launches_total = {"spmm_ema": 0, "spmm_blocked": 0}
+    for set_name, tnames in MOTIF_SETS:
+        templates = [graphlet(t) for t in tnames]
+        t0 = time.perf_counter()
+        engine = CountingEngine(graph, templates, memory_budget_bytes=budget)
+        build_s = time.perf_counter() - t0
+        if engine.backend != "blocked":
+            raise AssertionError(f"{set_name}: backend='auto' resolved to {engine.backend!r}")
+        bsz = min(engine.chunk_size, MOTIF_KEYS)
+        n_chunks = -(-MOTIF_KEYS // bsz)
+        t0 = time.perf_counter()
+        engine.count_keys(keys)  # first call: allocator growth, lazy set-up
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spmm_ema.launches = spmm_ema.device_launches = 0
+        spmm_blocked.launches = spmm_blocked.device_launches = 0
+        t0 = time.perf_counter()
+        est = engine.count_keys(keys)  # returns on the host: synchronised
+        run_s = time.perf_counter() - t0
+        launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+        device_launches = {"spmm_ema": spmm_ema.device_launches,
+                           "spmm_blocked": spmm_blocked.device_launches}
+        peak = torch.cuda.max_memory_allocated()
+        widths = bag_widths(engine, bsz)
+        if launches["spmm_blocked"] != len(widths) * n_chunks or launches["spmm_ema"] <= 0:
+            raise AssertionError(f"{set_name}: launches {launches}, expected "
+                                 f"{len(widths) * n_chunks} of spmm_blocked and some spmm_ema")
+        for name in launches:
+            launches_total[name] += launches[name]
+            device_launches_total[name] += device_launches[name]
+        profile = device_profile(lambda: engine.count_keys(keys), motif_kernel_kind)
+        plain = CountingEngine(graph, templates, backend="edges", chunk_size=1, device=device)
+        t0 = time.perf_counter()
+        est_plain = plain.count_keys(keys)
+        plain_s = time.perf_counter() - t0
+        if not (np.all(np.isfinite(est)) and np.all(est >= 0)):
+            raise AssertionError(f"{set_name}: estimates not finite and >= 0: {est.tolist()}")
+        if not np.allclose(est, est_plain, rtol=TOTALS_RTOL, atol=0.0):
+            raise AssertionError(f"{set_name}: blocked {est.tolist()} vs edges "
+                                 f"{est_plain.tolist()} beyond rtol={TOTALS_RTOL}")
+        nz = est_plain != 0
+        rec = {
+            "set": set_name, "templates": [t.name for t in engine.templates],
+            "backend": engine.backend, "backend_reason": engine.backend_reason,
+            "chunk_size": engine.chunk_size, "colorings_per_chunk": bsz, "chunks": n_chunks,
+            "engine_build_s": build_s, "first_call_s": first_s,
+            "seconds_per_coloring": run_s / MOTIF_KEYS,
+            "plain_edges_seconds_per_coloring": plain_s / MOTIF_KEYS,
+            "bag_widths": widths,
+            "launches": launches,
+            "device_launches": device_launches,
+            "max_memory_allocated": peak,
+            "predicted_peak_bytes": bsz * engine.bytes_per_coloring(),
+            "dense_adjacency_bytes": graph.n * graph.n * 4,
+            "profile": profile,
+            "estimates": est.tolist(),
+            "max_rel_diff_vs_edges": float(np.max(np.abs(est - est_plain)[nz] / est_plain[nz]))
+            if nz.any() else 0.0,
+        }
+        log(f"[motif] {json.dumps(rec)}")
+        records.append(rec)
+        del engine, plain
+        torch.cuda.empty_cache()
+    return {"engines": records, "launches": launches_total,
+            "device_launches": device_launches_total}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: the counting service
+# ---------------------------------------------------------------------------
+
+
+def service_path(graph, device, budget) -> dict:
+    """Two tenants on one ``CountingService``, then a warm repeat; every
+    query's per-coloring rows equal ``count_keys`` on its ``fold_in`` keys."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
+    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+    from repro_torch.serve.counting import CountingService
+
+    kwargs = {} if device.type == "cuda" else {"device": device}
+    svc = CountingService(memory_budget_bytes=budget, **kwargs)
+    svc.register_graph("rmat8k", graph)
+    g3 = [graphlet(t) for t in MOTIF_SETS[0][1]]
+    g4 = [graphlet(t) for t in MOTIF_SETS[1][1]]
+    tenants = (("tenant1", g3, dict(epsilon=0.1, delta=0.05, iterations=16, seed=1)),
+               ("tenant2", g4, dict(iterations=8, seed=2)))
+    spmm_ema.launches = spmm_blocked.launches = 0
+    spmm_ema.device_launches = spmm_blocked.device_launches = 0
+    t0 = time.perf_counter()
+    queries = [(name, svc.submit("rmat8k", ts, tenant=name, record_rows=True, **kw))
+               for name, ts, kw in tenants]
+    done_s = {}
+    while svc.has_pending():
+        if svc.step() is None:
+            raise AssertionError("the service has pending work and nothing to run")
+        for name, q in queries:
+            if q.finished and name not in done_s:
+                done_s[name] = time.perf_counter() - t0
+    launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+    device_launches = {"spmm_ema": spmm_ema.device_launches,
+                       "spmm_blocked": spmm_blocked.device_launches}
+    for name, q in queries:
+        if not q.done:
+            raise AssertionError(f"{name}: query ended {q.status} ({q.error})")
+    warm = svc.engine(queries[1][1].engine_key)
+    builds = warm.trace_count
+    t0 = time.perf_counter()
+    again = svc.submit("rmat8k", g4, tenant="tenant2", record_rows=True, **tenants[1][2])
+    svc.run()
+    warm_s = time.perf_counter() - t0
+    if not again.done or svc.engine(again.engine_key) is not warm or warm.trace_count != builds:
+        raise AssertionError(f"the warm repeat built again ({builds} -> {warm.trace_count} "
+                             f"chunk-function builds) or did not finish ({again.status})")
+    queries.append(("tenant2 repeat", again))
+    rows = []
+    for name, q in queries:
+        seed = tenants[0 if name == "tenant1" else 1][2]["seed"]
+        keys = fold_in(prng_key(seed, device), torch.arange(q.iterations, device=device))
+        direct = svc.engine(q.engine_key).count_keys(keys)
+        if not np.array_equal(q.per_iteration(), direct):
+            raise AssertionError(f"{name}: served rows differ from count_keys on the same keys "
+                                 f"(max |diff| {np.abs(q.per_iteration() - direct).max():g})")
+        rows.append({"query": name, "templates": [t.name for t in q.templates],
+                     "iterations": q.iterations, "converged": [bool(e.converged) for e in q.result()],
+                     "means": [e.mean for e in q.result()],
+                     "wall_s": warm_s if name == "tenant2 repeat" else done_s[name]})
+    out = {"queries": rows, "launches": launches, "device_launches": device_launches,
+           "service_launches": svc.stats()["launches"],
+           "engines_built": svc.stats()["cache"]["misses"],
+           "warm_repeat_chunk_function_builds": warm.trace_count - builds,
+           "rows_equal_to_count_keys": True}
+    log(f"[service] {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -789,7 +1125,6 @@ def kernel_record(name, path, source, replaces, launches, rows, timed=None) -> d
     return {
         "name": name,
         "path": path,
-        "on_main_path": name in COUNTING_PATH_KERNELS + LM_PATH_KERNELS,
         "route": "cuda",
         "source": source,
         "replaces": replaces,
@@ -832,6 +1167,8 @@ def main(argv=None) -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     build_kernels()
+    colorings = check_known_colorings(device)
+    table_iii = table_iii_counts(device)
 
     from repro_torch.core.graph import rmat_graph
     from repro_torch.kernels.spmm_blocked.ops import prepare_operand
@@ -845,7 +1182,7 @@ def main(argv=None) -> int:
     partition = load_balance(graph, operand, geometries, EMA_CHUNK, SPMM_WIDTHS)
     log(f"[partition] {json.dumps(partition)}")
 
-    spmm_rows = check_spmm_blocked(operand, SPMM_WIDTHS, device)
+    spmm_rows, spmm_grids = check_spmm_blocked(operand, SPMM_WIDTHS, device)
     ema_rows = check_spmm_ema(operand, geometries, EMA_CHUNK, device)
     del operand
     torch.cuda.empty_cache()
@@ -856,30 +1193,54 @@ def main(argv=None) -> int:
     del graph
     torch.cuda.empty_cache()
     exactness(device)
+
+    motif_graph = rmat_graph(**MOTIF_GRAPH_SPEC)
+    log(f"[graph] rmat n={motif_graph.n} directed edges={motif_graph.num_directed} "
+        f"max degree={motif_graph.max_degree()}")
+    motif = motif_path(motif_graph, device, MEMORY_BUDGET_BYTES)
+    bag_launch_widths = sorted({c for rec in motif["engines"] for c in rec["bag_widths"]})
+    one_coloring_widths = sorted({c for rec in motif["engines"]
+                                  for c in bag_widths_of(rec)} - set(bag_launch_widths))
+    bag_rows, bag_grids = check_spmm_blocked(prepare_operand(motif_graph, device),
+                                  bag_launch_widths + one_coloring_widths, device, reps=3)
+    served = service_path(motif_graph, device, MEMORY_BUDGET_BYTES)
+    del motif_graph
+    torch.cuda.empty_cache()
     log(f"[time] counting phases done at {time.perf_counter() - t_start:.1f} s")
 
     from repro_torch.configs.granite_8b import CONFIG as LM_CONFIG
 
     flash_rows = check_flash(LM_CONFIG, FLASH_SHAPES, device)
     lm, params, cfg32 = lm_forward(LM_CONFIG, device)
-    served = serve(cfg32, params, device)
+    lm_served = serve(cfg32, params, device)
     del params
     torch.cuda.empty_cache()
     log(f"[time] LM phases done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
+        # times: the u12 stages of the tree path at 2 colorings
         dict(kernel_record(
             "spmm_ema", "counting", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
             "src/repro/kernels/spmm_ema/kernel.py:48", main["launches"]["spmm_ema"],
             ema_rows,
         ), library_spmm_half_ms=sum(r["library_spmm_half_ms"] for r in ema_rows),
-            device_launches=main["device_launches"]["spmm_ema"]),
+            device_launches=main["device_launches"]["spmm_ema"],
+            launches_by_path={"tree": main["launches"]["spmm_ema"],
+                              "motif": motif["launches"]["spmm_ema"],
+                              "service": served["launches"]["spmm_ema"]}),
+        # times: one launch at each bag width of the motif path (its
+        # launches), the widths of one coloring and the n=2^20 widths in
+        # "shapes" only
         dict(kernel_record(
-            "spmm_blocked", "counting",
+            "spmm_blocked", "motif",
             "src/repro_torch/kernels/spmm_blocked/csrc/spmm_blocked.cu",
             "src/repro/kernels/spmm_blocked/kernel.py:62",
-            main["launches"]["spmm_blocked"], spmm_rows,
-        ), device_launches=main["device_launches"]["spmm_blocked"]),
+            motif["launches"]["spmm_blocked"], spmm_rows + bag_rows,
+            timed=[r for r in bag_rows if r["cols"] in bag_launch_widths],
+        ), device_launches=motif["device_launches"]["spmm_blocked"],
+            launches_by_path={"tree": main["launches"]["spmm_blocked"],
+                             "motif": motif["launches"]["spmm_blocked"],
+                             "service": served["launches"]["spmm_blocked"]}),
         # times: one launch at the forward's shape (b=4, s=4096), which the
         # bf16 forward launches once per layer (the fp32 gate forward runs
         # flash_attention.cu, checked by the logits gate)
@@ -895,8 +1256,10 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "partition": partition, "main": main, "lm": lm, "serve": served,
-             "kernels": kernels},
+            {"card": card, "colorings": colorings, "table_iii": table_iii,
+             "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
+             "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
+             "service": served, "lm": lm, "serve": lm_served, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,7 +30,7 @@ from .counting import (
     spmm_edges,
     spmm_ell,
 )
-from .engine import CountingEngine, DtypePolicy, EstimateResult, resolve_device
+from .engine import CountingEngine, DtypePolicy, EstimateResult, engine_cache_key, resolve_device
 from .estimator import estimate_embeddings, required_iterations
 from .graph import (
     BlockedELL,

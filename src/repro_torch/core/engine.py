@@ -13,19 +13,22 @@ construction raises when there is none (it never falls back to the CPU;
 callers that want the CPU pass ``device="cpu"``).  A chunk of ``B``
 colorings rides the fused ``(n, B, C)`` layout of every DP state.
 
-:meth:`CountingEngine.count_colorings` is the parity surface with the
-reference: explicit ``(iters, n)`` colorings in, normalised estimates out.
-:meth:`CountingEngine.estimate` draws colorings from a seeded
-``torch.Generator`` on the engine's device; it does not reproduce JAX's
-threefry stream (ROADMAP queue 1 item 3).  The reference's fault seams come
-with the serving slice (queue 1 item 8).
+Colorings come from threefry PRNG keys drawn exactly as the reference draws
+them (:mod:`repro_torch.core.prng`): :meth:`CountingEngine.estimate`,
+:meth:`~CountingEngine.count_keys` and
+:meth:`~CountingEngine.count_keys_chunk` give the reference's estimates for
+the same seed or keys.  :meth:`CountingEngine.count_colorings` takes
+explicit ``(iters, n)`` colorings.  :func:`engine_cache_key` is the
+engine's identity, which the counting service caches warm engines under.
+The fault-injection seams (``engine_build``, ``launch``) are the
+reference's (:mod:`repro_torch.testing.faults`).
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,9 +37,11 @@ from repro_torch.device import resolve_device
 from repro_torch.exec.base import EngineBackend, make_backend
 from repro_torch.exec.select import ENGINE_BACKENDS, resolve_backend_config
 from repro_torch.plan.cost import DEFAULT_MEMORY_BUDGET_BYTES, CostModel
-from repro_torch.plan.ir import TemplatePlan, build_template_plan
+from repro_torch.plan.ir import TemplatePlan, build_template_plan, template_set_canons
+from repro_torch.testing import faults as _faults
 
 from .colorsets import colorful_probability
+from .prng import as_keys, prng_key, split
 from .counting import CountingPlan
 from .graph import Graph
 from .templates import Template
@@ -45,6 +50,7 @@ __all__ = [
     "DtypePolicy",
     "EstimateResult",
     "CountingEngine",
+    "engine_cache_key",
     "resolve_device",
 ]
 
@@ -91,6 +97,76 @@ class EstimateResult:
     iterations: int
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _assemble_cache_key(
+    signature: str,
+    canons: Tuple[Tuple[str, ...], ...],
+    backend: str,
+    policy: DtypePolicy,
+    chunk_spec: Tuple,
+    column_batch: Optional[int],
+) -> Tuple:
+    """The one place the cache-key tuple is laid out, shared by
+    :func:`engine_cache_key` and :meth:`CountingEngine.cache_key`.  Its
+    positions are the reference's: the serving layer's degradation ladder
+    reads backend, chunk spec and column batch at [3], [6] and [7]; the
+    last element, the reference's tuning fragment, is ``None`` until the
+    port has a tuning layer (ROADMAP queue 1 item 9)."""
+    return (
+        "counting-engine",
+        signature,
+        canons,
+        backend,
+        _dtype_name(policy.store_dtype),
+        _dtype_name(policy.accum_dtype),
+        chunk_spec,
+        None if column_batch is None else int(column_batch),
+        None,
+    )
+
+
+def engine_cache_key(
+    graph: Graph,
+    templates: Sequence[Template],
+    *,
+    device=None,
+    backend: str = "auto",
+    dtype_policy: Union[str, "DtypePolicy", torch.dtype, None] = "fp32",
+    chunk_size: Optional[int] = None,
+    memory_budget_bytes: Optional[int] = None,
+    column_batch: Optional[int] = None,
+) -> Tuple:
+    """Hashable identity of a :class:`CountingEngine`, computable without
+    building one.  Anatomy (the reference's)::
+
+        ("counting-engine",
+         graph signature,           # content hash of (n, src, dst)
+         template-set canons,       # DP-schedule identity, label-free
+         resolved backend name,     # the resolution ladder folded in
+         store dtype, accum dtype,  # dtype policy
+         chunk spec,                # ("chunk", c), or ("budget", bytes)
+         column_batch,              # fused-slice width override, or None
+         None)                      # the reference's tuning fragment
+
+    Backend resolution runs the constructor's ladder on ``device``'s
+    platform, so the key equals the built engine's
+    :meth:`CountingEngine.cache_key`; equal plans give equal keys."""
+    platform = resolve_device(device).type
+    name, _source, _reason, _ = resolve_backend_config(graph, backend=backend, platform=platform)
+    budget = DEFAULT_MEMORY_BUDGET_BYTES if memory_budget_bytes is None else memory_budget_bytes
+    return _assemble_cache_key(
+        graph.signature(),
+        template_set_canons(templates),
+        name,
+        DtypePolicy.resolve(dtype_policy),
+        ("chunk", int(chunk_size)) if chunk_size else ("budget", int(budget)),
+        column_batch,
+    )
+
+
 class CountingEngine:
     """Batched color-coding counting runs over one graph on one device.
 
@@ -103,12 +179,14 @@ class CountingEngine:
       backend: ``auto`` | ``edges`` | ``ell`` | ``sell`` | ``dense`` |
         ``blocked``.  ``auto`` resolves ``REPRO_ENGINE_BACKEND``, then the
         graph-statistics heuristic (``blocked`` on a card for large graphs).
+        Ignored when ``spmm_fn`` is given.
+      spmm_fn: optional ``(n, C) -> (n, C)`` neighbor-sum function (the
+        ``custom`` backend).
       dtype_policy: ``fp32`` | ``bf16`` | a :class:`DtypePolicy` | a dtype.
       memory_budget_bytes: live-footprint budget steering the chunk picker.
       chunk_size: explicit colorings-per-chunk override (skips the picker).
-
-    The streamed backends aggregate ``column_batch`` passive columns per
-    slice, the cost model's pick.
+      column_batch: passive columns per fused slice of the streamed
+        backends; ``None``: the cost model's pick.
     """
 
     def __init__(
@@ -118,14 +196,19 @@ class CountingEngine:
         *,
         device=None,
         backend: str = "auto",
+        spmm_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
         dtype_policy: Union[str, DtypePolicy, torch.dtype, None] = "fp32",
         memory_budget_bytes: Optional[int] = None,
         chunk_size: Optional[int] = None,
+        column_batch: Optional[int] = None,
     ):
         if isinstance(templates, Template):
             templates = [templates]
         if not templates:
             raise ValueError("CountingEngine needs at least one template")
+        # fault-injection seam: construction is the first failure surface a
+        # serving deployment meets, before any operand binds
+        _faults.maybe_fail("engine_build", ctx=f"backend={backend}")
         self.device = resolve_device(device)
 
         # --- layer 1: the backend-agnostic plan.
@@ -139,11 +222,14 @@ class CountingEngine:
         # --- layer 2: the cost model (fusion slack stays at 1.0).
         self.cost = CostModel(self.plan_ir, graph, self.policy.store_dtype)
 
-        if backend != "auto" and backend not in ENGINE_BACKENDS:
-            raise ValueError(f"unknown backend {backend!r} (one of {ENGINE_BACKENDS})")
-        name, source, reason, _ = resolve_backend_config(
-            graph, backend=backend, platform=self.device.type
-        )
+        if spmm_fn is not None:
+            name, source, reason = "custom", "custom", "caller-supplied spmm_fn"
+        else:
+            if backend != "auto" and backend not in ENGINE_BACKENDS:
+                raise ValueError(f"unknown backend {backend!r} (one of {ENGINE_BACKENDS})")
+            name, source, reason, _ = resolve_backend_config(
+                graph, backend=backend, platform=self.device.type
+            )
         self.backend = name
         self.backend_source = source
         self.backend_reason = reason
@@ -151,7 +237,10 @@ class CountingEngine:
         self.memory_budget_bytes = int(
             DEFAULT_MEMORY_BUDGET_BYTES if memory_budget_bytes is None else memory_budget_bytes
         )
-        self.column_batch = self.cost.pick_local_column_batch()
+        self._column_batch_arg = column_batch
+        self.column_batch = (
+            int(column_batch) if column_batch else self.cost.pick_local_column_batch()
+        )
 
         norm = colorful_probability(self.k)
         self._norm_factors = torch.tensor(
@@ -166,8 +255,10 @@ class CountingEngine:
         self.counters: Dict[str, int] = {"passive_aggregations": 0}
 
         # --- layer 3: bind the plan to the device.
-        self.backend_impl: EngineBackend = make_backend(self)
+        self.backend_impl: EngineBackend = make_backend(self, spmm_fn=spmm_fn)
 
+        self._chunk_explicit = bool(chunk_size)
+        self._graph_signature: Optional[str] = None
         self.chunk_size = (
             int(chunk_size)
             if chunk_size
@@ -198,6 +289,26 @@ class CountingEngine:
         """The chunk picker's live-footprint prediction for one chunk."""
         return self.chunk_size * self.bytes_per_coloring()
 
+    def graph_signature(self) -> str:
+        """Content hash of the graph (memoised; :meth:`Graph.signature`)."""
+        if self._graph_signature is None:
+            self._graph_signature = self.graph.signature()
+        return self._graph_signature
+
+    def cache_key(self) -> Tuple:
+        """This engine's :func:`engine_cache_key` (resolved values), equal to
+        what a caller computes before construction with the same arguments.
+        A ``custom`` ``spmm_fn``'s identity is not part of it."""
+        return _assemble_cache_key(
+            self.graph_signature(),
+            self.plan_ir.canons,
+            self.backend,
+            self.policy,
+            ("chunk", self.chunk_size) if self._chunk_explicit
+            else ("budget", self.memory_budget_bytes),
+            self._column_batch_arg,
+        )
+
     def describe(self) -> Dict:
         """Structured construction record: backend decision and reason,
         device, shapes, dtype policy, chunk plan, memory model and plan."""
@@ -214,8 +325,8 @@ class CountingEngine:
             "k": self.k,
             "templates": [t.name for t in self.templates],
             "dtype_policy": {
-                "store": str(self.policy.store_dtype).replace("torch.", ""),
-                "accum": str(self.policy.accum_dtype).replace("torch.", ""),
+                "store": _dtype_name(self.policy.store_dtype),
+                "accum": _dtype_name(self.policy.accum_dtype),
             },
             "column_batch": self.column_batch,
             "chunk_size": self.chunk_size,
@@ -227,6 +338,8 @@ class CountingEngine:
                 "predicted_resident_bytes": self.backend_impl.resident_elements() * itemsize,
                 "bytes_per_coloring": self.bytes_per_coloring(),
             },
+            "graph_signature": self.graph_signature(),
+            "cache_key": self.cache_key(),
         }
 
     # ------------------------------------------------------------------
@@ -268,19 +381,57 @@ class CountingEngine:
             return np.zeros((0, len(self.templates)), np.float64)
         return torch.cat(outs, dim=0).cpu().numpy().astype(np.float64)
 
-    def draw_colorings(self, iterations: int, seed: int = 0) -> torch.Tensor:
-        """``(iterations, n)`` uniform colorings from a seeded generator on
-        the engine's device."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return torch.randint(
-            0, self.k, (int(iterations), self.graph.n), generator=gen, device=self.device
-        )
+    def count_keys_chunk(self, keys) -> np.ndarray:
+        """Streaming increment: ``(m, 2)`` PRNG keys, ``m <= chunk_size``, ->
+        ``(m, T)`` normalised estimates (float64 host array), one chunk.
+
+        The serving path: callers stream iterations through repeated calls.
+        A short increment is padded with its last key up to ``chunk_size``,
+        as in the reference, so every launch has the chunk's shape whatever
+        the increment.  The fault seams fire here, at the launch boundary.
+        """
+        keys = as_keys(keys, self.device)
+        m = int(keys.shape[0])
+        if m == 0:
+            return np.zeros((0, len(self.templates)), np.float64)
+        if m > self.chunk_size:
+            raise ValueError(
+                f"increment of {m} keys exceeds chunk_size={self.chunk_size}; "
+                "split it (count_keys handles multi-chunk runs)"
+            )
+        _faults.maybe_fail("launch", ctx=f"backend={self.backend}")
+        pad = self.chunk_size - m
+        if pad:
+            keys = torch.cat([keys, keys[-1:].expand(pad, 2)])
+        vals = self.backend_impl.counts_for_keys_chunk(keys)
+        out = vals.cpu().numpy().astype(np.float64)[:m]
+        return _faults.corrupt_result("launch", out, ctx=f"backend={self.backend}")
+
+    def count_keys(self, keys) -> np.ndarray:
+        """``(iters, 2)`` PRNG keys (``split`` output, or the reference's
+        ``jax.random.split`` as a numpy array) -> ``(iters, T)`` normalised
+        estimates (float64 host array).  Chunks of ``min(chunk_size,
+        iters)`` keys, the last padded with its last key, as the reference
+        runs them."""
+        keys = as_keys(keys, self.device)
+        if keys.dim() != 2:
+            raise ValueError("count_keys takes (iters, 2) keys")
+        iters = int(keys.shape[0])
+        if iters == 0:
+            return np.zeros((0, len(self.templates)), np.float64)
+        chunk = min(self.chunk_size, iters)
+        pad = -iters % chunk
+        if pad:
+            keys = torch.cat([keys, keys[-1:].expand(pad, 2)])
+        run = self.backend_impl.counts_for_keys_chunk
+        outs = [run(keys[lo : lo + chunk]) for lo in range(0, keys.shape[0], chunk)]
+        return torch.cat(outs, dim=0).cpu().numpy().astype(np.float64)[:iters]
 
     def estimate(self, iterations: int = 32, seed: int = 0) -> List[EstimateResult]:
-        """Run ``iterations`` random colorings; one :class:`EstimateResult`
-        per template (paper Algorithm 1, batched)."""
-        vals = self.count_colorings(self.draw_colorings(iterations, seed))
+        """Run ``iterations`` random colorings from ``split(prng_key(seed),
+        iterations)``, the reference's keys; one :class:`EstimateResult` per
+        template (paper Algorithm 1, batched)."""
+        vals = self.count_keys(split(prng_key(seed, self.device), iterations))
         return [
             EstimateResult(
                 mean=float(vals[:, t].mean()),

@@ -3,14 +3,15 @@
 The port of ``repro.core.estimator``: a thin wrapper over
 :class:`repro_torch.core.engine.CountingEngine`.  The iteration count for
 an (epsilon, delta) guarantee is ``ceil(p^-1 log(1/delta) / epsilon^2)``
-(Alon et al.).  The reference's adaptive stopping path comes with the
-serving slice (ROADMAP queue 1 item 8).
+(Alon et al.).  With an ``epsilon`` / ``delta`` target the run streams
+through the serving layer's adaptive stopper instead
+(:func:`repro_torch.serve.stopping.adaptive_estimate`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 from .colorsets import colorful_probability
 from .engine import CountingEngine, EstimateResult
@@ -38,16 +39,42 @@ def estimate_embeddings(
     chunk_size: Optional[int] = None,
     memory_budget_bytes: Optional[int] = None,
     device=None,
+    spmm_fn: Optional[Callable] = None,
+    epsilon: Optional[float] = None,
+    delta: Optional[float] = None,
+    max_iterations: Optional[int] = None,
+    bound: str = "normal",
 ) -> EstimateResult:
-    """End-to-end estimator: ``iterations`` (default 32) seeded colorings
-    through one engine on ``device`` (``None``: the CUDA card)."""
+    """End-to-end estimator on ``device`` (``None``: the CUDA card).
+
+    Without a target: ``iterations`` (default 32) colorings from
+    ``split(prng_key(seed), iterations)``, as the reference.  With
+    ``epsilon`` or ``delta`` (defaults 0.05 each): colorings stream in
+    engine-chunk increments from ``fold_in(prng_key(seed), i)`` and stop
+    once the CI halfwidth (``bound``: ``"normal"`` or ``"bernstein"``) is
+    within ``epsilon * |mean|`` at confidence ``1 - delta``, or at the
+    budget ``max_iterations`` (else ``iterations``, else 1024).
+    """
     engine = CountingEngine(
         graph,
         [template],
         device=device,
         backend=backend,
+        spmm_fn=spmm_fn,
         dtype_policy=dtype,
         chunk_size=chunk_size,
         memory_budget_bytes=memory_budget_bytes,
     )
+    if epsilon is not None or delta is not None:
+        # lazy import: the serving layer sits above core and imports it
+        from repro_torch.serve.stopping import adaptive_estimate
+
+        return adaptive_estimate(
+            engine,
+            epsilon=0.05 if epsilon is None else float(epsilon),
+            delta=0.05 if delta is None else float(delta),
+            seed=seed,
+            max_iterations=int(max_iterations or iterations or 1024),
+            bound=bound,
+        )[0]
     return engine.estimate(iterations=iterations or 32, seed=seed)[0]

@@ -11,10 +11,18 @@ import repro_torch.core
 
 _CYCLE_ANCHOR = repro_torch
 
-from .base import EngineBackend, StageTables, build_stage_tables, make_backend
+from .base import (
+    BagStageTables,
+    EngineBackend,
+    StageTables,
+    build_bag_tables,
+    build_stage_tables,
+    make_backend,
+)
 from .local import (
     SELL_GROUP_SIZE,
     BlockedEllBackend,
+    CustomBackend,
     DenseBackend,
     EdgesBackend,
     EllBackend,
@@ -26,7 +34,9 @@ from .select import resolve_backend_config, select_backend
 __all__ = [
     "EngineBackend",
     "StageTables",
+    "BagStageTables",
     "build_stage_tables",
+    "build_bag_tables",
     "make_backend",
     "LocalBackend",
     "EdgesBackend",
@@ -34,6 +44,7 @@ __all__ = [
     "SellBackend",
     "DenseBackend",
     "BlockedEllBackend",
+    "CustomBackend",
     "SELL_GROUP_SIZE",
     "resolve_backend_config",
     "select_backend",

@@ -27,17 +27,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.colorsets import bucketed_split_entries
+from repro_torch.core.prng import randint
 
 __all__ = [
     "StageTables",
+    "BagStageTables",
     "EngineBackend",
     "build_stage_tables",
+    "build_bag_tables",
     "make_backend",
 ]
 
 
-def make_backend(engine) -> "EngineBackend":
-    """Bind ``engine``'s resolved backend name to an implementation."""
+def make_backend(engine, spmm_fn: Optional[Callable] = None) -> "EngineBackend":
+    """Bind ``engine``'s resolved backend name to an implementation
+    (``spmm_fn``: the ``custom`` backend's neighbor sum)."""
     from .local import (
         BlockedEllBackend,
         CustomBackend,
@@ -50,7 +54,7 @@ def make_backend(engine) -> "EngineBackend":
 
     name = engine.backend
     if name == "custom":
-        return CustomBackend(engine)
+        return CustomBackend(engine, spmm_fn)
     if name == "mixed":
         return MixedBackend(engine)
     if name == "edges":
@@ -135,6 +139,66 @@ def build_stage_tables(
     return out
 
 
+@dataclass(frozen=True)
+class BagStageTables:
+    """Color tables of one bag op, on the device.
+
+    ``extend`` ops carry a :class:`~repro_torch.core.colorsets.SplitTable`
+    with ``m_a = 1`` (the new vertex's one-hot color against the input's
+    colorsets); ``join`` ops a
+    :class:`~repro_torch.core.colorsets.UnionSplitTable`.  Both reduce to
+    one gather-multiply-add per term, so the executor needs only the rank
+    tables, stored term-major: ``idx_a[t]`` / ``idx_p[t]`` are the
+    ``(n_out,)`` ranks of term ``t`` (the reference's ``(n_out, n_terms)``
+    tables, transposed).
+    """
+
+    kind: str  # "extend" | "join"
+    n_out: int
+    n_terms: int
+    idx_a: torch.Tensor  # (n_terms, n_out) int64
+    idx_p: torch.Tensor  # (n_terms, n_out) int64
+
+
+def build_bag_tables(plan, device) -> Dict[Tuple[int, int], BagStageTables]:
+    """Bind every bag plan's extend/join tables to ``device``.
+
+    Returns ``(plan_idx, op_idx) -> BagStageTables`` for every extend and
+    join op of every bag counting plan, de-duplicated by table identity.
+    """
+    cache: Dict[Tuple, BagStageTables] = {}
+    out: Dict[Tuple[int, int], BagStageTables] = {}
+    for p_idx, cplan in enumerate(plan.counting_plans):
+        if cplan.partition is not None:
+            continue
+        for i, op in enumerate(cplan.bag_program.ops):
+            table = cplan.tables[i]
+            if table is None:
+                continue
+            if op.kind == "extend":
+                key = ("extend", table.k, table.m, table.m_a)
+                n_terms = table.n_splits
+            else:
+                key = ("join", table.k, table.m1, table.m2, table.overlap)
+                n_terms = table.n_pairs
+            if key not in cache:
+
+                def term_major(idx):
+                    return torch.as_tensor(
+                        np.ascontiguousarray(np.asarray(idx).T), dtype=torch.long, device=device
+                    )
+
+                cache[key] = BagStageTables(
+                    kind=op.kind,
+                    n_out=table.n_out,
+                    n_terms=n_terms,
+                    idx_a=term_major(table.idx_a),
+                    idx_p=term_major(table.idx_p),
+                )
+            out[(p_idx, i)] = cache[key]
+    return out
+
+
 class EngineBackend:
     """One fused SpMM+eMA execution strategy behind ``CountingEngine``.
 
@@ -167,6 +231,20 @@ class EngineBackend:
     def counts_for_colors(self, colors: torch.Tensor) -> torch.Tensor:
         """``(B, n)`` colorings -> ``(B, T)`` un-normalised colorful totals."""
         raise NotImplementedError
+
+    def counts_for_keys_chunk(self, keys: torch.Tensor) -> torch.Tensor:
+        """``(B, 2)`` PRNG keys -> ``(B, T)`` normalised estimates through the
+        engine's chunk function.
+
+        The coloring draw is the same on every backend: one ``randint`` per
+        key over the original vertex ids, bit-equal to the reference's
+        ``jax.random.randint(key, (n,), 0, k)``, on the engine's device.  So
+        the same keys give the same colorings, and fp-tolerance-comparable
+        estimates, on every backend and in the reference.
+        """
+        eng = self.engine
+        colors = randint(keys.to(eng.device), (eng.graph.n,), 0, eng.k)
+        return eng._get_chunk_fn()(colors)
 
     def make_chunk_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """The per-chunk function: ``(B, n)`` colorings -> ``(B, T)``

@@ -6,13 +6,18 @@ bound :class:`~repro_torch.plan.ir.TemplatePlan`; subclasses supply the
 column-slice neighbor reduction :meth:`LocalBackend.spmm` or, for the CUDA
 kernels, override :meth:`~repro_torch.exec.base.EngineBackend.aggregate_ema`.
 
-Bag plans (non-tree templates) are not ported yet: building any local
-backend for them raises ``NotImplementedError`` (ROADMAP queue 1 item 7).
+Non-tree templates walk their bag programs (tree-decomposition lowering,
+``repro_torch.core.templates.build_bag_program``) through the same slots
+and liveness schedule.  A bag state over ``r`` template vertices is an
+``(n,)*r + (B, C)`` tensor; an extend contracts one vertex axis through the
+backend's :meth:`~LocalBackend.spmm` on the state flattened to ``(n,
+n**(r-1) * B, C)``, so under ``blocked`` every bag extend with an
+eliminated neighbor is one launch of the blocked SpMM kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
@@ -20,7 +25,13 @@ from repro_torch.core.colorsets import binom
 from repro_torch.core.counting import fused_aggregate_ema_grouped
 from repro_torch.core.graph import build_sell
 
-from .base import EngineBackend, StageTables, build_stage_tables
+from .base import (
+    BagStageTables,
+    EngineBackend,
+    StageTables,
+    build_bag_tables,
+    build_stage_tables,
+)
 
 __all__ = [
     "LocalBackend",
@@ -50,14 +61,18 @@ class LocalBackend(EngineBackend):
 
     def __init__(self, engine):
         super().__init__(engine)
-        if engine.plan_ir.has_bag_stages:
-            raise NotImplementedError(
-                "bag-stage (non-tree) templates are not ported yet "
-                "(ROADMAP queue 1 item 7)"
-            )
         self.stage_tables: Dict = build_stage_tables(
             engine.plan_ir, engine.column_batch, engine.device
         )
+        self.bag_tables: Dict = build_bag_tables(engine.plan_ir, engine.device)
+        self._bag_adj = None
+        if engine.plan_ir.has_bag_stages:
+            # bag-extend edge masks multiply by A[u_w, u_x]; the dense
+            # adjacency broadcasts against a state of any rank
+            self._bag_adj = torch.as_tensor(
+                engine.graph.dense_adjacency(), dtype=engine.policy.store_dtype,
+                device=engine.device,
+            )
 
     def spmm(self, m: torch.Tensor) -> torch.Tensor:
         """One neighbor reduction over a fused ``(n, B, c)`` column slice;
@@ -85,7 +100,8 @@ class LocalBackend(EngineBackend):
         The walk *is* the plan: sub-template states are memoized by
         canonical form, freed at the plan's liveness-scheduled last reads,
         and stages reading the same passive canonical form execute as one
-        plan exec group over one column-batch sweep.
+        plan exec group over one column-batch sweep.  Bag plans walk their
+        bag programs through the same slots and liveness schedule.
         """
         eng = self.engine
         ir = eng.plan_ir
@@ -98,6 +114,30 @@ class LocalBackend(EngineBackend):
         pos = 0
         for p_idx, cplan in enumerate(ir.counting_plans):
             canons = ir.canons[p_idx]
+            if cplan.partition is None:
+                ops = cplan.bag_program.ops
+                for i, op in enumerate(ops):
+                    key = canons[i]
+                    if key in executed:
+                        continue
+                    executed.add(key)
+                    if op.kind == "leaf":
+                        slots[key] = leaf
+                    elif key not in slots:
+                        slots[key] = self._run_bag_op(cplan, canons, p_idx, i, op, leaf, slots).to(
+                            pol.store_dtype
+                        )
+                    for dead in free_at.get(pos, ()):
+                        slots.pop(dead, None)
+                    pos += 1
+                # the last op has no vertex axes: its (B, 1) state holds the
+                # single C(k, k) colorset column, the colorful total
+                root = slots[canons[len(ops) - 1]].to(pol.accum_dtype)
+                totals.append(root.sum(dim=-1).to(torch.float32))
+                for dead in free_at.get(pos, ()):
+                    slots.pop(dead, None)
+                pos += 1
+                continue
             for i, sub in enumerate(cplan.partition.subs):
                 key = canons[i]
                 if key in executed:
@@ -129,6 +169,91 @@ class LocalBackend(EngineBackend):
                 slots.pop(dead, None)
             pos += 1
         return torch.stack(totals, dim=1)  # (B, T)
+
+    # -- bag-program execution ------------------------------------------------
+
+    def _run_bag_op(self, cplan, canons, p_idx, i, op, leaf, slots) -> torch.Tensor:
+        """One extend / forget / join bag op on ``(n,)*r + (B, C)`` states,
+        vertex axes sorted by template vertex id."""
+        if op.kind == "extend":
+            return self._bag_extend(cplan, canons, p_idx, i, op, leaf, slots)
+        if op.kind == "forget":
+            in_op = cplan.bag_program.ops[op.inputs[0]]
+            state = slots[canons[op.inputs[0]]]
+            return self._bag_forget(state, list(in_op.axes), op.forget_vertices)[0]
+        if op.kind == "join":
+            return self._bag_join(op, self.bag_tables[(p_idx, i)], slots, canons)
+        raise ValueError(f"unknown bag op kind {op.kind!r}")
+
+    @staticmethod
+    def _bag_forget(state, axes_now, forget_vertices):
+        for x in forget_vertices:
+            ax = axes_now.index(x)
+            state = state.sum(dim=ax)
+            axes_now.pop(ax)
+        return state, axes_now
+
+    def _bag_extend(self, cplan, canons, p_idx, i, op, leaf, slots) -> torch.Tensor:
+        eng = self.engine
+        accum = eng.policy.accum_dtype
+        n = eng.graph.n
+        tables: BagStageTables = self.bag_tables[(p_idx, i)]
+        in_op = cplan.bag_program.ops[op.inputs[0]]
+        state = slots[canons[op.inputs[0]]]
+        axes_now = list(in_op.axes)
+        if op.spmm_vertex is not None:
+            # contract the eliminated axis through the adjacency (edge
+            # (spmm_vertex, vertex)) with the backend's neighbor sum on the
+            # (n, B', C) layout; moving the axis to the front copies the
+            # state unless it is there already
+            ax = axes_now.index(op.spmm_vertex)
+            state = state.movedim(ax, 0)
+            rest = state.shape[1:]
+            flat = state.reshape(n, -1, state.shape[-1])
+            state = self._spmm_counted(flat).reshape((n,) + rest)
+            # a neighbor sum that handed back its input must not be masked
+            # in place: the input may be a view of a live slot
+            owned = state.untyped_storage().data_ptr() != flat.untyped_storage().data_ptr()
+            axes_now.pop(ax)
+        else:
+            # broadcast introduction: the new vertex's edges arrive as masks
+            state = state.unsqueeze(0).expand((n,) + tuple(state.shape))
+            owned = False
+        axes_now = [op.vertex] + axes_now
+        for x in op.mask_vertices:
+            ax = axes_now.index(x)
+            mask = self._bag_adj.reshape((n,) + (1,) * (ax - 1) + (n,) + (1,) * (state.dim() - 1 - ax))
+            # the first mask of a broadcast state materialises it; later
+            # masks, and masks of an SpMM output, multiply in place
+            state = state.mul_(mask) if owned else state * mask.to(state.dtype)
+            owned = True
+        # colorset update against the new vertex's one-hot leaf: the tree
+        # eMA with a width-1 active, one gather-multiply-add per term
+        r = state.dim()
+        out = torch.zeros(tuple(state.shape[:-1]) + (tables.n_out,), dtype=accum, device=state.device)
+        for t in range(tables.n_terms):
+            la = leaf.index_select(2, tables.idx_a[t]).to(accum)  # (n, B, n_out)
+            la = la.reshape((n,) + (1,) * (r - 3) + tuple(la.shape[1:]))
+            out.addcmul_(la, state.index_select(r - 1, tables.idx_p[t]).to(accum))
+        out, axes_now = self._bag_forget(out, axes_now, op.forget_vertices)
+        # restore the sorted axis order (the new vertex's axis is in front)
+        order = sorted(range(len(axes_now)), key=lambda idx: axes_now[idx])
+        if order != list(range(len(axes_now))):
+            out = out.permute(order + list(range(len(axes_now), out.dim())))
+        return out
+
+    def _bag_join(self, op, tables: BagStageTables, slots, canons) -> torch.Tensor:
+        accum = self.engine.policy.accum_dtype
+        s1 = slots[canons[op.inputs[0]]]
+        s2 = slots[canons[op.inputs[1]]]
+        last = s1.dim() - 1
+        out = torch.zeros(tuple(s1.shape[:-1]) + (tables.n_out,), dtype=accum, device=s1.device)
+        for t in range(tables.n_terms):
+            out.addcmul_(
+                s1.index_select(last, tables.idx_a[t]).to(accum),
+                s2.index_select(last, tables.idx_p[t]).to(accum),
+            )
+        return out
 
 
 class EdgesBackend(LocalBackend):
@@ -285,14 +410,20 @@ class BlockedEllBackend(LocalBackend):
 
 
 class CustomBackend(LocalBackend):
-    """Caller-supplied neighbor-sum kernel: not ported yet."""
+    """Caller-supplied ``(n, C) -> (n, C)`` neighbor-sum function."""
 
     name = "custom"
 
-    def __init__(self, engine):
-        raise NotImplementedError(
-            "the custom spmm_fn backend is not ported yet (ROADMAP queue 1 item 5)"
-        )
+    def __init__(self, engine, spmm_fn: Callable[[torch.Tensor], torch.Tensor]):
+        super().__init__(engine)
+        if spmm_fn is None:
+            raise ValueError("the custom backend needs an spmm_fn")
+        self._spmm_fn = spmm_fn
+
+    def spmm(self, m):
+        n, b, c = m.shape
+        out = self._spmm_fn(m.reshape(n, b * c))
+        return out.reshape(n, b, c).to(self.engine.policy.accum_dtype)
 
 
 class MixedBackend(LocalBackend):

@@ -45,6 +45,7 @@ __all__ = [
     "RANGE_EDGES",
     "KERNEL_WARPS",
     "check_schedule",
+    "check_int32_counts",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spmm_blocked.cu"
@@ -282,6 +283,40 @@ def check_schedule(lib: ctypes.CDLL) -> None:
                                f"at C={c}, the host model {tile_width(c)}")
 
 
+#: Largest value the kernels hold in a 32-bit ``int``.
+INT32_MAX = 2**31 - 1
+
+
+def check_int32_counts(operand: CompactOperand, c: int) -> Dict[str, int]:
+    """The counts a launch of ``csrc/spmm_blocked.cu`` over a ``c``-column
+    operand holds in 32-bit ``int``s; raises ``ValueError`` naming the first
+    that does not fit, so that none wraps.
+
+    A bag extend's state flattened to ``(n, n**(r-1) * B * C)`` is far wider
+    than a tree stage: 49,152 columns at n = 8192, B = 1 and C = 6.  The
+    kernel's column index runs to ``c`` plus one tile (128 columns), each
+    heavy segment is one warp item per column tile, the grid is the heavy
+    blocks (8 items each) and the light ranges, and a light CTA walks its
+    rows times the tiles; row offsets are 64-bit already.
+    """
+    part = operand.partition
+    n_tiles = -(-c // 128)  # tile_width is 128 above 64 columns, one tile below
+    heavy_items = part.n_segments * n_tiles
+    counts = {
+        "column index (C + one tile)": c + 128,
+        "heavy items (segments x column tiles)": heavy_items + KERNEL_WARPS,
+        "grid (heavy blocks + light ranges)": -(-heavy_items // KERNEL_WARPS) + part.n_ranges,
+        "light-range items (rows x column tiles)": RANGE_ROWS * n_tiles,
+    }
+    for what, value in counts.items():
+        if value > INT32_MAX:
+            raise ValueError(
+                f"spmm_blocked cannot launch on {c} columns: its {what} would be {value}, "
+                f"past the kernel's 32-bit int ({INT32_MAX}); split the columns"
+            )
+    return counts
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.spmm_blocked_launch
@@ -301,7 +336,8 @@ def spmm_blocked(operand: CompactOperand, m: torch.Tensor) -> torch.Tensor:
     ``spmm_blocked.launches`` and the number of device kernels it issued (1,
     or 2 with heavy rows: the reduction) to ``spmm_blocked.device_launches``;
     its scratch (one ``C``-wide row per heavy segment) is ``n_segments * C *
-    4`` bytes.
+    4`` bytes.  A width whose launch counts would pass the kernel's 32-bit
+    ints raises (:func:`check_int32_counts`).
     """
     if m.dim() != 2 or m.shape[0] != operand.n:
         raise ValueError(f"expected M of shape ({operand.n}, C), got {tuple(m.shape)}")
@@ -316,6 +352,7 @@ def spmm_blocked(operand: CompactOperand, m: torch.Tensor) -> torch.Tensor:
     if not m.is_contiguous():
         raise ValueError("spmm_blocked needs a contiguous M")
     n, c = m.shape
+    check_int32_counts(operand, c)
     part = operand.partition
     out = torch.empty((n, c), dtype=torch.float32, device=m.device)
     partials = torch.empty((part.n_segments, c), dtype=torch.float32, device=m.device)

@@ -13,7 +13,11 @@ segments whose count is exact, and rows at the heavy threshold all occur
 on small graphs; two launches on the same inputs must give the same bits
 (no atomics, no timing-dependent order).  Kernel A's wide path (stages
 whose row does not fit shared memory) runs at u20's real widths and, under
-a small budget, at u12's.
+a small budget, at u12's.  Kernel B also runs at the widths of bag extends
+(a state of n = 8192 rows flattened to 49,152 and 98,304 columns), and
+refuses widths whose launch counts would pass its 32-bit ints; non-tree
+templates run through the ``blocked`` engine on the card, and the threefry
+draws on the card equal the CPU's bit for bit.
 Tolerances: the plain versions sum with ``index_add_``, whose CUDA atomics
 add in no fixed order, and the kernels contract multiply-adds into FMAs.
 The fp32 flash-attention kernel computes in fp32 like its plain version
@@ -35,7 +39,8 @@ from repro_torch.core.colorsets import binom, build_split_table
 from repro_torch.core.counting import brute_force_colorful, build_counting_plan
 from repro_torch.core.engine import CountingEngine
 from repro_torch.core.graph import Graph, grid_graph, rmat_graph
-from repro_torch.core.templates import get_template
+from repro_torch.core.prng import fold_in, prng_key, randint, split
+from repro_torch.core.templates import connected_graphlets, get_template
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.spmm_blocked import ops as blocked_ops
@@ -322,3 +327,60 @@ def test_lm_forward_on_card_matches_cpu(card):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("cols", [49_152, 98_304])
+def test_spmm_blocked_kernel_at_bag_widths(card, cols):
+    g = rmat_graph(8192, 80_000, seed=2)
+    op = prepare_operand(g, card)
+    gen = torch.Generator(device=card).manual_seed(cols)
+    m = torch.rand((g.n, cols), generator=gen, device=card)
+    got = spmm_blocked(op, m)
+    assert torch.equal(got, spmm_blocked(op, m))
+    want = spmm_ref(op.src, op.dst, g.n, m, col_chunk=4096)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * float(want.abs().max()))
+
+
+def test_spmm_blocked_refuses_widths_past_its_int32_counts(card):
+    # the column index: C plus one tile must stay below 2**31 (8 GB of M)
+    lone = prepare_operand(Graph(n=1, src=np.zeros(0, np.int64), dst=np.zeros(0, np.int64)), card)
+    with pytest.raises(ValueError, match="column index"):
+        spmm_blocked(lone, torch.empty((1, 2**31 - 64), device=card))
+    # a product: 2**20 heavy segments x 2048 column tiles = 2**31 warp items
+    g = _graph()
+    op = prepare_operand(g, card)
+    many = torch.zeros(2**20, dtype=torch.int32, device=card)
+    wide = dataclasses.replace(op, partition=dataclasses.replace(op.partition, seg_beg=many,
+                                                                 seg_end=many))
+    with pytest.raises(ValueError, match="heavy items"):
+        spmm_blocked(wide, torch.empty((g.n, 2048 * 128), device=card))
+    assert blocked_ops.check_int32_counts(op, 49_152)["column index (C + one tile)"] == 49_280
+
+
+def test_bag_stages_on_card_match_edges_and_cpu(card):
+    g = rmat_graph(200, 900, seed=5)
+    keys = split(prng_key(1), 3)
+    for k in (3, 4):
+        ts = list(connected_graphlets(k))
+        before = spmm_blocked.launches
+        got = CountingEngine(g, ts, device=card, backend="blocked").count_keys(keys)
+        assert spmm_blocked.launches > before  # bag extends went through kernel B
+        want = CountingEngine(g, ts, device=card, backend="edges").count_keys(keys)
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        cpu = CountingEngine(g, ts, device="cpu", backend="edges").count_keys(keys)
+        np.testing.assert_allclose(got, cpu, rtol=1e-4)
+    tiny = grid_graph(4, 5)
+    for name in ("triangle", "square", "diamond", "clique4"):
+        t = get_template(name)
+        plan = build_counting_plan(t)
+        c = np.random.default_rng(2).integers(0, t.k, size=tiny.n)
+        raw = float(CountingEngine(tiny, [t], backend="blocked").raw_counts(c)[0])
+        assert raw / plan.automorphisms == brute_force_colorful(tiny, t, c)
+
+
+def test_prng_draws_on_card_equal_cpu(card):
+    keys = split(prng_key(5), 6)
+    for n, k in ((1, 2), (8191, 3), (1 << 20, 12)):
+        assert torch.equal(randint(keys.to(card), (n,), 0, k).cpu(), randint(keys, (n,), 0, k))
+    idx = torch.arange(6)
+    assert torch.equal(fold_in(keys.to(card), idx.to(card)).cpu(), fold_in(keys, idx))

@@ -174,9 +174,7 @@ def test_backend_selection_ladder(monkeypatch):
 
 def test_unported_paths_raise_with_their_roadmap_item():
     _, g = _graphs("grid")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        CountingEngine(g, [port_templates.get_template("triangle")], device="cpu", backend="edges")
-    for backend, item in (("mixed", "item 9"), ("custom", "item 5"), ("mesh", "item 11")):
+    for backend, item in (("mixed", "item 9"), ("mesh", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             CountingEngine(g, [port_templates.get_template("u3")], device="cpu", backend=backend)
 

@@ -16,6 +16,8 @@ another order than the plain versions, so they are held to fp32 tolerance
 (``rtol=1e-5, atol=1e-4`` on values of order 10).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -495,3 +497,23 @@ def test_stage_tables_reject_out_of_range_indices():
         prepare_stage_tables(table.idx_a, table.idx_p, binom(5, 2), binom(5, 1) - 1, "cpu")
     with pytest.raises(ValueError, match="outside"):
         prepare_stage_tables(table.idx_a, table.idx_p + 1, binom(5, 2), binom(5, 1), "cpu")
+
+
+def test_spmm_blocked_refuses_counts_past_int32():
+    """Bag extends flatten states to (n, n**(r-1) * B * C): the wrapper
+    refuses a width whose launch counts would wrap the kernel's 32-bit ints
+    (checked here on the host; the card test launches the refusal)."""
+    lone = prepare_operand(Graph(n=1, src=np.zeros(0, np.int64), dst=np.zeros(0, np.int64)), "cpu")
+    assert blocked_ops.check_int32_counts(lone, 2**31 - 129)["column index (C + one tile)"] == 2**31 - 1
+    with pytest.raises(ValueError, match="column index"):
+        blocked_ops.check_int32_counts(lone, 2**31 - 128)
+    g = rmat_graph(600, 4000, seed=3)
+    op = prepare_operand(g, "cpu")
+    many = torch.zeros(2**20, dtype=torch.int32)
+    wide = dataclasses.replace(op, partition=dataclasses.replace(op.partition, seg_beg=many,
+                                                                 seg_end=many))
+    blocked_ops.check_int32_counts(wide, 2047 * 128)
+    with pytest.raises(ValueError, match="heavy items"):
+        blocked_ops.check_int32_counts(wide, 2048 * 128)
+    counts = blocked_ops.check_int32_counts(op, 49_152)
+    assert counts["light-range items (rows x column tiles)"] == blocked_ops.RANGE_ROWS * 384

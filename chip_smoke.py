@@ -67,6 +67,34 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    the four 4-vertex templates at 8 iterations, then repeats the second on
    the warm engine, which must build nothing new; every query's estimates
    equal ``CountingEngine.count_keys`` on its ``fold_in`` keys.
+5d. Autotuning (``[tune]``): the port's tuner (``repro_torch.tune.tune``,
+   ``top_n=4, probes=3``, the reference bench's settings, widened only as
+   far as the best-ranked ``blocked`` candidate and the best-ranked
+   ``mixed`` one that binds a group to ``blocked``) on the tableIII rmat2k
+   and on rmat8k with ``u5-1``, into a temporary tuning cache that
+   ``REPRO_TUNE_CACHE`` names for the whole script (so no earlier phase
+   reads a tuned entry).  Prints every measured candidate, the lattice
+   size, the winner, the heuristic's pick and the calibration ratios, then
+   races the winner against the heuristic engine (7 interleaved timed
+   launches each; the ratio is not gated).  Gates: a ``blocked`` candidate
+   was measured and kernel A launched; an engine built afterwards with
+   ``backend="auto"`` resolves with source ``tuned`` and its totals are
+   within ``TOTALS_RTOL`` of ``edges`` on the same keys; an explicit
+   ``mixed`` engine on rmat8k, binding alternate tree groups to ``blocked``
+   and ``edges``, is within ``TOTALS_RTOL`` of ``edges`` and launches
+   kernel A once per ``blocked``-bound stage per chunk.
+5e. The asynchronous front-end (``[frontend]``), the counterpart of the
+   reference's ``frontend_chaos32`` row: a started ``ServiceFrontend`` over
+   a 48 GiB ``CountingService`` on rmat8k runs one ``fe.tune("rmat8k",
+   "u5-1")`` task, then two tenant threads submit 16 queries each (16
+   iterations, seeds 1000 k + i; tenant 0 ``u5-1``, tenant 1 the 3-vertex
+   graphlets) under a seeded ``FaultPlan`` of 1-in-8 transient launch
+   faults (installed after the tune: an injected fault in a tuner probe
+   trips the scheduler by design).  Gates: no unresolved future, every
+   query that did not fail has rows bit-equal to ``count_keys`` on its
+   ``fold_in`` keys, ``tunes_run == 1`` and ``health()`` reports
+   ``running``.  Prints p50/p99 latency, queries/s, faults injected,
+   retries and failed queries.
 6. The bf16 flash-attention kernel (tensor cores,
    ``flash_attention_sm90.cu``) against its plain version at granite-8b's
    head geometry (h=32, h_kv=8, d=128, bf16, causal) at (b, s) = (4, 4096),
@@ -101,8 +129,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -162,6 +194,20 @@ TOTALS_RTOL = 1e-4
 #: Most edge visits (edges x passive tiles) any warp may make on a stage of
 #: TEMPLATE on the smoke graph.
 VISIT_CAP = 32_768
+
+#: Phase 5d: the reference bench's tuner settings (``bench_tuning.py``), the
+#: template, and the interleaved timed launches of the winner-vs-heuristic race.
+TUNE_TEMPLATE = "u5-1"
+TUNE_TOP_N = 4
+TUNE_PROBES = 3
+TUNE_RACE_LAUNCHES = 7
+TUNE_CHECK_KEYS = 8
+
+#: Phase 5e: the reference's ``frontend_chaos32`` load on rmat8k.
+FRONTEND_QUERIES_PER_TENANT = 16
+FRONTEND_ITERATIONS = 16
+FRONTEND_FAULT_RATE = 1 / 8
+FRONTEND_FAULT_SEED = 0
 
 #: LM path: (b, s) of the flash checks, of the forward, and the serving run.
 FLASH_SHAPES = ((4, 4096), (1, 32768), (2, 4000))
@@ -699,6 +745,21 @@ def exactness(device) -> None:
         f"SpMM kernel ({', '.join(EXACT_BAG_TEMPLATES)})")
 
 
+def reset_counting_launches() -> None:
+    from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
+    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+
+    spmm_ema.launches = spmm_blocked.launches = 0
+    spmm_ema.device_launches = spmm_blocked.device_launches = 0
+
+
+def counting_launches() -> dict:
+    from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
+    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+
+    return {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+
+
 # ---------------------------------------------------------------------------
 # phase 5b: motif counting of non-tree templates (bag stages)
 # ---------------------------------------------------------------------------
@@ -783,12 +844,11 @@ def motif_path(graph, device, budget) -> dict:
         first_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        spmm_ema.launches = spmm_ema.device_launches = 0
-        spmm_blocked.launches = spmm_blocked.device_launches = 0
+        reset_counting_launches()
         t0 = time.perf_counter()
         est = engine.count_keys(keys)  # returns on the host: synchronised
         run_s = time.perf_counter() - t0
-        launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+        launches = counting_launches()
         device_launches = {"spmm_ema": spmm_ema.device_launches,
                            "spmm_blocked": spmm_blocked.device_launches}
         peak = torch.cuda.max_memory_allocated()
@@ -859,8 +919,7 @@ def service_path(graph, device, budget) -> dict:
     g4 = [graphlet(t) for t in MOTIF_SETS[1][1]]
     tenants = (("tenant1", g3, dict(epsilon=0.1, delta=0.05, iterations=16, seed=1)),
                ("tenant2", g4, dict(iterations=8, seed=2)))
-    spmm_ema.launches = spmm_blocked.launches = 0
-    spmm_ema.device_launches = spmm_blocked.device_launches = 0
+    reset_counting_launches()
     t0 = time.perf_counter()
     queries = [(name, svc.submit("rmat8k", ts, tenant=name, record_rows=True, **kw))
                for name, ts, kw in tenants]
@@ -871,7 +930,7 @@ def service_path(graph, device, budget) -> dict:
         for name, q in queries:
             if q.finished and name not in done_s:
                 done_s[name] = time.perf_counter() - t0
-    launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+    launches = counting_launches()
     device_launches = {"spmm_ema": spmm_ema.device_launches,
                        "spmm_blocked": spmm_blocked.device_launches}
     for name, q in queries:
@@ -905,6 +964,246 @@ def service_path(graph, device, budget) -> dict:
            "warm_repeat_chunk_function_builds": warm.trace_count - builds,
            "rows_equal_to_count_keys": True}
     log(f"[service] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: autotuning
+# ---------------------------------------------------------------------------
+
+
+def binds_blocked(cfg) -> bool:
+    return "blocked" in {cfg.default_backend, *cfg.bindings().values()}
+
+
+def tune_one(name, graph, device, budget) -> dict:
+    """Tune ``u5-1`` on one graph, race the winner against the heuristic,
+    and hold the engine ``auto`` now builds against ``edges``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
+    from repro_torch.core.templates import get_template
+    from repro_torch.plan.cost import CostModel, load_backend_calibration
+    from repro_torch.plan.ir import build_template_plan
+    from repro_torch.tune import tune
+
+    template = get_template(TUNE_TEMPLATE)
+    lattice = CostModel(build_template_plan([template]), graph, torch.float32).candidate_lattice(
+        platform="cuda", calibration=load_backend_calibration(), memory_budget_bytes=budget)
+    ranks = {"blocked": next(i for i, c in enumerate(lattice) if c.config.backend_name == "blocked")}
+    mixed = [i for i, c in enumerate(lattice) if c.config.mixed and binds_blocked(c.config)]
+    if mixed:
+        ranks["mixed_with_blocked"] = mixed[0]
+    top_n = max([TUNE_TOP_N] + [r + 1 for r in ranks.values()])
+    t0 = time.perf_counter()
+    result = tune(graph, [template], top_n=top_n, probes=TUNE_PROBES,
+                  memory_budget_bytes=budget, device=device)
+    tune_s = time.perf_counter() - t0
+    if not any(m.config.backend_name == "blocked" for m in result.measured):
+        raise AssertionError(f"[tune] {name}: no blocked candidate measured")
+    measured = [{"backend": m.config.backend_name, "chunk": m.config.chunk_size,
+                 "column_batch": m.config.column_batch,
+                 "budget_gib": m.config.memory_budget_bytes / 2**30,
+                 "groups": m.config.describe()["groups"],
+                 "predicted_us_per_coloring": m.predicted_us,
+                 "measured_us_per_coloring": m.measured_us,
+                 "winner": m.config == result.config} for m in result.measured]
+
+    # the winner, as backend="auto" now resolves it, against the heuristic
+    tuned = CountingEngine(graph, [template], device=device)
+    if tuned.backend_source != "tuned" or tuned.cache_key()[-1] != result.config.key_fragment():
+        raise AssertionError(f"[tune] {name}: auto resolved {tuned.backend} "
+                             f"({tuned.backend_source}), not the tuned winner")
+    heuristic = CountingEngine(graph, [template], device=device,
+                               backend=result.heuristic_backend, memory_budget_bytes=budget)
+    race = {"tuned": [], "heuristic": []}
+    engines = {"tuned": tuned, "heuristic": heuristic}
+    keys = {k: split(prng_key(0, device), e.chunk_size) for k, e in engines.items()}
+    for k, e in engines.items():
+        e.count_keys_chunk(keys[k])  # warm-up
+    for _ in range(TUNE_RACE_LAUNCHES):
+        for k, e in engines.items():  # interleaved: drift hits both
+            t0 = time.perf_counter()
+            e.count_keys_chunk(keys[k])  # ends on the host
+            race[k].append((time.perf_counter() - t0) * 1e6 / e.chunk_size)
+    med = {k: float(np.median(v)) for k, v in race.items()}
+    # where a chunk's time goes, for both engines (not in the race's times)
+    profiles = {k: device_profile(lambda e=e, k=k: e.count_keys_chunk(keys[k]), motif_kernel_kind)
+                for k, e in engines.items()}
+    check = split(prng_key(1, device), TUNE_CHECK_KEYS)
+    est = tuned.count_keys(check)
+    want = CountingEngine(graph, [template], device=device, backend="edges",
+                          memory_budget_bytes=budget).count_keys(check)
+    if not (np.all(np.isfinite(est)) and np.allclose(est, want, rtol=TOTALS_RTOL, atol=0.0)):
+        raise AssertionError(f"[tune] {name}: tuned {est.tolist()} vs edges {want.tolist()}")
+    rec = {"graph": name, "template": TUNE_TEMPLATE, "lattice_size": result.lattice_size,
+           "top_n": top_n, "probes": TUNE_PROBES, "ranks": ranks, "measured": measured,
+           "winner": result.config.describe(), "heuristic": result.heuristic_backend,
+           "calibration": result.calibration, "tune_s": tune_s,
+           "race_us_per_coloring": med, "race_launches": TUNE_RACE_LAUNCHES,
+           "tuned_over_heuristic": med["tuned"] / med["heuristic"], "profiles": profiles,
+           "tuned_chunk": tuned.chunk_size, "heuristic_chunk": heuristic.chunk_size,
+           "max_rel_diff_vs_edges": float(np.max(np.abs(est - want) / np.abs(want)))}
+    log(f"[tune] {json.dumps(rec)}")
+    del tuned, heuristic, engines
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mixed_check(graph, device, budget) -> dict:
+    """An explicit ``mixed`` engine binding alternate tree groups to
+    ``blocked`` and ``edges``: totals against ``edges``, and kernel A once
+    per ``blocked``-bound stage per chunk."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
+    from repro_torch.core.templates import get_template
+    from repro_torch.plan.cost import CostModel
+    from repro_torch.plan.ir import build_template_plan
+    from repro_torch.tune import TuningConfig
+
+    template = get_template(TUNE_TEMPLATE)
+    plan = build_template_plan([template])
+    leaders = CostModel(plan, graph, torch.float32).tree_group_leaders()
+    bound = {addr: ("blocked", "edges")[k % 2] for k, addr in enumerate(leaders)}
+    cfg = TuningConfig("edges", group_backends=tuple(bound.items()))
+    engine = CountingEngine(graph, [template], device=device, backend="mixed", tuning=cfg,
+                            memory_budget_bytes=budget)
+    keys = split(prng_key(2, device), TUNE_CHECK_KEYS)
+    engine.count_keys(keys)  # warm-up
+    reset_counting_launches()
+    est = engine.count_keys(keys)
+    launches = counting_launches()
+    chunks = -(-TUNE_CHECK_KEYS // min(engine.chunk_size, TUNE_CHECK_KEYS))
+    blocked_stages = sum(len(plan.exec_groups[a]) for a, b in bound.items() if b == "blocked")
+    want = CountingEngine(graph, [template], device=device, backend="edges",
+                          memory_budget_bytes=budget).count_keys(keys)
+    if launches["spmm_ema"] != blocked_stages * chunks:
+        raise AssertionError(f"[tune] mixed: kernel A launched {launches['spmm_ema']} times, "
+                             f"expected {blocked_stages} stages x {chunks} chunks")
+    if not np.allclose(est, want, rtol=TOTALS_RTOL, atol=0.0):
+        raise AssertionError(f"[tune] mixed {est.tolist()} vs edges {want.tolist()}")
+    rec = {"groups": cfg.describe()["groups"], "blocked_stages": blocked_stages,
+           "chunks": chunks, "launches": launches,
+           "max_rel_diff_vs_edges": float(np.max(np.abs(est - want) / np.abs(want)))}
+    log(f"[tune] mixed {json.dumps(rec)}")
+    return rec
+
+
+def tune_path(graphs, device, budget) -> dict:
+    """Phase 5d over ``graphs`` (name -> graph), then the mixed check on the
+    last; the tuner's probes are the counted launches."""
+    reset_counting_launches()
+    totals = {"spmm_ema": 0, "spmm_blocked": 0}
+    records = []
+    for name, graph in graphs.items():
+        reset_counting_launches()
+        rec = tune_one(name, graph, device, budget)
+        rec["launches"] = counting_launches()  # the tuner's probes, race and gates
+        for k in totals:
+            totals[k] += rec["launches"][k]
+        records.append(rec)
+    if totals["spmm_ema"] <= 0:
+        raise AssertionError(f"[tune] kernel A never launched: {totals}")
+    mixed = mixed_check(graphs["rmat8k"], device, budget)
+    return {"graphs": records, "mixed": mixed, "launches": totals}
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the asynchronous front-end under faults
+# ---------------------------------------------------------------------------
+
+
+def frontend_path(graph, device, budget) -> dict:
+    """Two tenant threads through a started ``ServiceFrontend`` under 1-in-8
+    transient launch faults, after one background tune task."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.prng import fold_in, prng_key
+    from repro_torch.serve import CountingService, RetryPolicy, ServiceError, ServiceFrontend
+    from repro_torch.testing.faults import FaultPlan, FaultSpec
+
+    svc = CountingService(memory_budget_bytes=budget, device=device,
+                          retry_policy=RetryPolicy(max_retries=8, backoff_base=0.002,
+                                                   max_backoff=0.05))
+    svc.register_graph("rmat8k", graph)
+    g3 = [graphlet(t) for t in MOTIF_SETS[0][1]]
+    tenants = {"tenant0": [graphlet(TUNE_TEMPLATE)], "tenant1": g3}
+    futs = {name: [] for name in tenants}
+    reset_counting_launches()
+    fe = ServiceFrontend(svc)
+    t0 = time.perf_counter()
+    with fe:
+        fe.tune("rmat8k", [graphlet(TUNE_TEMPLATE)])
+        while fe.tunes_run < 1:
+            if fe.health()["state"] != "running":
+                raise AssertionError(f"[frontend] the tune tripped the scheduler: "
+                                     f"{fe.health()['last_error']}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("[frontend] the tune task did not run within 300 s")
+            time.sleep(0.01)
+        tune_s = time.perf_counter() - t0
+
+        def submitter(k, name):
+            for i in range(FRONTEND_QUERIES_PER_TENANT):
+                futs[name].append(fe.submit(name, "rmat8k", tenants[name],
+                                            iterations=FRONTEND_ITERATIONS,
+                                            seed=1000 * k + i, record_rows=True))
+
+        plan = FaultPlan([FaultSpec(site="launch", kind="transient", rate=FRONTEND_FAULT_RATE)],
+                         seed=FRONTEND_FAULT_SEED)
+        failed = 0
+        t0 = time.perf_counter()
+        with plan:
+            threads = [threading.Thread(target=submitter, args=(k, name))
+                       for k, name in enumerate(tenants)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            for fs in futs.values():
+                for f in fs:
+                    try:
+                        f.result(timeout=600)
+                    except ServiceError:
+                        failed += 1
+        wall = time.perf_counter() - t0
+        health = fe.health()
+    launches = counting_launches()
+    all_futs = [f for fs in futs.values() for f in fs]
+    unresolved = sum(1 for f in all_futs if not f.done())
+    if unresolved:
+        raise AssertionError(f"[frontend] {unresolved} futures unresolved")
+    if fe.tunes_run != 1 or health["state"] != "running":
+        raise AssertionError(f"[frontend] tunes_run={fe.tunes_run}, health {health}")
+    checked = 0
+    for k, name in enumerate(tenants):
+        for i, f in enumerate(futs[name]):
+            if f.failed():
+                continue
+            q = f._query
+            keys = fold_in(prng_key(1000 * k + i, device), torch.arange(q.iterations, device=device))
+            direct = svc.engine(q.engine_key).count_keys(keys)
+            if not np.array_equal(q.per_iteration(), direct):
+                raise AssertionError(f"[frontend] {name} query {i}: served rows differ from "
+                                     f"count_keys on the same keys")
+            checked += 1
+    lat_s = np.asarray([f.resolved_at - f.submitted_at for f in all_futs])
+    stats = svc.stats()
+    out = {"queries": len(all_futs), "failed": failed, "rows_checked": checked,
+           "p50_s": float(np.percentile(lat_s, 50)), "p99_s": float(np.percentile(lat_s, 99)),
+           "queries_per_s": len(all_futs) / wall, "wall_s": wall, "tune_s": tune_s,
+           "faults_injected": plan.fires_by_site().get("launch", 0),
+           "retries": stats["faults"]["retries"], "service_launches": stats["launches"],
+           "tunes_run": fe.tunes_run, "health": health["state"],
+           "backends": sorted({svc.engine(f._query.engine_key).backend for f in all_futs}),
+           "launches": launches, "unresolved": unresolved}
+    log(f"[frontend] {json.dumps(out)}")
     return out
 
 
@@ -1160,6 +1459,18 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # one empty tuning cache for the whole run: no phase before [tune] reads
+    # a tuned entry, and nothing outlives the run
+    tune_dir = tempfile.mkdtemp(prefix="chip-smoke-tuning-")
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(tune_dir, "TUNED_counting.json")
+    try:
+        return run(args, device)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run(args, device) -> int:
+    import torch
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1204,6 +1515,9 @@ def main(argv=None) -> int:
     bag_rows, bag_grids = check_spmm_blocked(prepare_operand(motif_graph, device),
                                   bag_launch_widths + one_coloring_widths, device, reps=3)
     served = service_path(motif_graph, device, MEMORY_BUDGET_BYTES)
+    tuned = tune_path({"rmat2k": rmat_graph(**TABLE_III_GRAPH_SPEC), "rmat8k": motif_graph},
+                      device, MEMORY_BUDGET_BYTES)
+    front = frontend_path(motif_graph, device, MEMORY_BUDGET_BYTES)
     del motif_graph
     torch.cuda.empty_cache()
     log(f"[time] counting phases done at {time.perf_counter() - t_start:.1f} s")
@@ -1227,7 +1541,9 @@ def main(argv=None) -> int:
             device_launches=main["device_launches"]["spmm_ema"],
             launches_by_path={"tree": main["launches"]["spmm_ema"],
                               "motif": motif["launches"]["spmm_ema"],
-                              "service": served["launches"]["spmm_ema"]}),
+                              "service": served["launches"]["spmm_ema"],
+                              "tune": tuned["launches"]["spmm_ema"],
+                              "frontend": front["launches"]["spmm_ema"]}),
         # times: one launch at each bag width of the motif path (its
         # launches), the widths of one coloring and the n=2^20 widths in
         # "shapes" only
@@ -1240,7 +1556,9 @@ def main(argv=None) -> int:
         ), device_launches=motif["device_launches"]["spmm_blocked"],
             launches_by_path={"tree": main["launches"]["spmm_blocked"],
                              "motif": motif["launches"]["spmm_blocked"],
-                             "service": served["launches"]["spmm_blocked"]}),
+                             "service": served["launches"]["spmm_blocked"],
+                             "tune": tuned["launches"]["spmm_blocked"],
+                             "frontend": front["launches"]["spmm_blocked"]}),
         # times: one launch at the forward's shape (b=4, s=4096), which the
         # bf16 forward launches once per layer (the fp32 gate forward runs
         # flash_attention.cu, checked by the logits gate)
@@ -1259,7 +1577,7 @@ def main(argv=None) -> int:
             {"card": card, "colorings": colorings, "table_iii": table_iii,
              "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
-             "service": served, "lm": lm, "serve": lm_served, "kernels": kernels},
+             "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -108,13 +108,14 @@ def _assemble_cache_key(
     policy: DtypePolicy,
     chunk_spec: Tuple,
     column_batch: Optional[int],
+    tuning_fragment: Optional[Tuple] = None,
 ) -> Tuple:
     """The one place the cache-key tuple is laid out, shared by
     :func:`engine_cache_key` and :meth:`CountingEngine.cache_key`.  Its
     positions are the reference's: the serving layer's degradation ladder
     reads backend, chunk spec and column batch at [3], [6] and [7]; the
-    last element, the reference's tuning fragment, is ``None`` until the
-    port has a tuning layer (ROADMAP queue 1 item 9)."""
+    tuning fragment (``TuningConfig.key_fragment()``, or ``None``) rides
+    last."""
     return (
         "counting-engine",
         signature,
@@ -124,7 +125,7 @@ def _assemble_cache_key(
         _dtype_name(policy.accum_dtype),
         chunk_spec,
         None if column_batch is None else int(column_batch),
-        None,
+        tuning_fragment,
     )
 
 
@@ -138,6 +139,7 @@ def engine_cache_key(
     chunk_size: Optional[int] = None,
     memory_budget_bytes: Optional[int] = None,
     column_batch: Optional[int] = None,
+    tuning=None,
 ) -> Tuple:
     """Hashable identity of a :class:`CountingEngine`, computable without
     building one.  Anatomy (the reference's)::
@@ -149,21 +151,36 @@ def engine_cache_key(
          store dtype, accum dtype,  # dtype policy
          chunk spec,                # ("chunk", c), or ("budget", bytes)
          column_batch,              # fused-slice width override, or None
-         None)                      # the reference's tuning fragment
+         tuning fragment)           # TuningConfig.key_fragment(), or None
 
-    Backend resolution runs the constructor's ladder on ``device``'s
-    platform, so the key equals the built engine's
-    :meth:`CountingEngine.cache_key`; equal plans give equal keys."""
-    platform = resolve_device(device).type
-    name, _source, _reason, _ = resolve_backend_config(graph, backend=backend, platform=platform)
+    Backend resolution runs the constructor's ladder (explicit >
+    ``REPRO_ENGINE_BACKEND`` > tuned cache entry for ``device``'s kind >
+    heuristic) on ``device``, and a tuned config's chunk, column batch and
+    budget are folded in as construction folds them, so the key equals the
+    built engine's :meth:`CountingEngine.cache_key`; equal plans give equal
+    keys."""
+    signature = graph.signature()
+    canons = template_set_canons(templates)
+    name, _source, _reason, cfg = resolve_backend_config(
+        graph, backend=backend, canons=canons, tuning=tuning,
+        device=resolve_device(device), signature=signature,
+    )
+    if cfg is not None:
+        if chunk_size is None and cfg.chunk_size is not None:
+            chunk_size = cfg.chunk_size
+        if column_batch is None and cfg.column_batch is not None:
+            column_batch = cfg.column_batch
+        if memory_budget_bytes is None and cfg.memory_budget_bytes is not None:
+            memory_budget_bytes = cfg.memory_budget_bytes
     budget = DEFAULT_MEMORY_BUDGET_BYTES if memory_budget_bytes is None else memory_budget_bytes
     return _assemble_cache_key(
-        graph.signature(),
-        template_set_canons(templates),
+        signature,
+        canons,
         name,
         DtypePolicy.resolve(dtype_policy),
         ("chunk", int(chunk_size)) if chunk_size else ("budget", int(budget)),
         column_batch,
+        None if cfg is None else cfg.key_fragment(),
     )
 
 
@@ -177,9 +194,12 @@ class CountingEngine:
       device: ``None`` (the CUDA card; raises without one), ``"cuda"``,
         ``"cuda:N"`` or ``"cpu"``.
       backend: ``auto`` | ``edges`` | ``ell`` | ``sell`` | ``dense`` |
-        ``blocked``.  ``auto`` resolves ``REPRO_ENGINE_BACKEND``, then the
-        graph-statistics heuristic (``blocked`` on a card for large graphs).
-        Ignored when ``spmm_fn`` is given.
+        ``blocked`` | ``mixed``.  ``auto`` resolves ``REPRO_ENGINE_BACKEND``,
+        then a tuned config (``tuning=``, or the tuning cache's entry for
+        this graph, template set and device kind under ``REPRO_TUNE``), then
+        the graph-statistics heuristic (``blocked`` on a card for large
+        graphs).  ``mixed`` requires ``tuning=``.  Ignored when ``spmm_fn``
+        is given.
       spmm_fn: optional ``(n, C) -> (n, C)`` neighbor-sum function (the
         ``custom`` backend).
       dtype_policy: ``fp32`` | ``bf16`` | a :class:`DtypePolicy` | a dtype.
@@ -187,6 +207,12 @@ class CountingEngine:
       chunk_size: explicit colorings-per-chunk override (skips the picker).
       column_batch: passive columns per fused slice of the streamed
         backends; ``None``: the cost model's pick.
+      tuning: optional :class:`repro_torch.tune.config.TuningConfig` (what
+        ``python -m repro_torch.tune`` / ``CountingService.tune`` produce):
+        binds per-group backends and supplies ``column_batch``,
+        ``chunk_size`` and ``memory_budget_bytes`` wherever the caller left
+        them ``None``.  Beaten by an explicit ``backend=`` or the env
+        override; ``describe()["backend"]["source"]`` records who won.
     """
 
     def __init__(
@@ -201,6 +227,7 @@ class CountingEngine:
         memory_budget_bytes: Optional[int] = None,
         chunk_size: Optional[int] = None,
         column_batch: Optional[int] = None,
+        tuning=None,
     ):
         if isinstance(templates, Template):
             templates = [templates]
@@ -222,14 +249,28 @@ class CountingEngine:
         # --- layer 2: the cost model (fusion slack stays at 1.0).
         self.cost = CostModel(self.plan_ir, graph, self.policy.store_dtype)
 
+        # backend resolution runs before the chunk, column-batch and budget
+        # knobs are read: a tuned config supplies those the caller left None
+        self._tuning = None
         if spmm_fn is not None:
             name, source, reason = "custom", "custom", "caller-supplied spmm_fn"
         else:
             if backend != "auto" and backend not in ENGINE_BACKENDS:
                 raise ValueError(f"unknown backend {backend!r} (one of {ENGINE_BACKENDS})")
-            name, source, reason, _ = resolve_backend_config(
-                graph, backend=backend, platform=self.device.type
+            name, source, reason, cfg = resolve_backend_config(
+                graph, backend=backend, canons=self.plan_ir.canons, tuning=tuning,
+                device=self.device,
             )
+            self._tuning = cfg
+            if cfg is None and tuning is not None:
+                logger.info("tuned config ignored: backend resolved by %s (%s)", source, reason)
+            if cfg is not None:
+                if column_batch is None and cfg.column_batch is not None:
+                    column_batch = cfg.column_batch
+                if chunk_size is None and cfg.chunk_size is not None:
+                    chunk_size = cfg.chunk_size
+                if memory_budget_bytes is None:
+                    memory_budget_bytes = cfg.memory_budget_bytes
         self.backend = name
         self.backend_source = source
         self.backend_reason = reason
@@ -255,7 +296,9 @@ class CountingEngine:
         self.counters: Dict[str, int] = {"passive_aggregations": 0}
 
         # --- layer 3: bind the plan to the device.
-        self.backend_impl: EngineBackend = make_backend(self, spmm_fn=spmm_fn)
+        self.backend_impl: EngineBackend = make_backend(
+            self, spmm_fn=spmm_fn, tuning=self._tuning
+        )
 
         self._chunk_explicit = bool(chunk_size)
         self._graph_signature: Optional[str] = None
@@ -307,6 +350,7 @@ class CountingEngine:
             ("chunk", self.chunk_size) if self._chunk_explicit
             else ("budget", self.memory_budget_bytes),
             self._column_batch_arg,
+            None if self._tuning is None else self._tuning.key_fragment(),
         )
 
     def describe(self) -> Dict:
@@ -318,6 +362,7 @@ class CountingEngine:
                 "name": self.backend,
                 "source": self.backend_source,
                 "reason": self.backend_reason,
+                "tuning": None if self._tuning is None else self._tuning.describe(),
             },
             "device": str(self.device),
             "n": self.graph.n,

@@ -27,9 +27,10 @@ from .local import (
     EdgesBackend,
     EllBackend,
     LocalBackend,
+    MixedBackend,
     SellBackend,
 )
-from .select import resolve_backend_config, select_backend
+from .select import consult_tuning, resolve_backend_config, select_backend, tune_mode
 
 __all__ = [
     "EngineBackend",
@@ -45,7 +46,10 @@ __all__ = [
     "DenseBackend",
     "BlockedEllBackend",
     "CustomBackend",
+    "MixedBackend",
     "SELL_GROUP_SIZE",
     "resolve_backend_config",
     "select_backend",
+    "consult_tuning",
+    "tune_mode",
 ]

@@ -39,34 +39,21 @@ __all__ = [
 ]
 
 
-def make_backend(engine, spmm_fn: Optional[Callable] = None) -> "EngineBackend":
+def make_backend(
+    engine, spmm_fn: Optional[Callable] = None, tuning=None
+) -> "EngineBackend":
     """Bind ``engine``'s resolved backend name to an implementation
-    (``spmm_fn``: the ``custom`` backend's neighbor sum)."""
-    from .local import (
-        BlockedEllBackend,
-        CustomBackend,
-        DenseBackend,
-        EdgesBackend,
-        EllBackend,
-        MixedBackend,
-        SellBackend,
-    )
+    (``spmm_fn``: the ``custom`` backend's neighbor sum; ``tuning``: the
+    ``mixed`` backend's :class:`~repro_torch.tune.config.TuningConfig`)."""
+    from .local import LOCAL_BACKEND_CLASSES, CustomBackend, MixedBackend
 
     name = engine.backend
     if name == "custom":
         return CustomBackend(engine, spmm_fn)
     if name == "mixed":
-        return MixedBackend(engine)
-    if name == "edges":
-        return EdgesBackend(engine)
-    if name == "ell":
-        return EllBackend(engine)
-    if name == "sell":
-        return SellBackend(engine)
-    if name == "dense":
-        return DenseBackend(engine)
-    if name == "blocked":
-        return BlockedEllBackend(engine)
+        return MixedBackend(engine, tuning)
+    if name in LOCAL_BACKEND_CLASSES:
+        return LOCAL_BACKEND_CLASSES[name](engine)
     if name == "mesh":
         raise NotImplementedError(
             "the mesh backend is not ported yet (ROADMAP queue 1 item 11)"

@@ -42,6 +42,7 @@ __all__ = [
     "BlockedEllBackend",
     "CustomBackend",
     "MixedBackend",
+    "LOCAL_BACKEND_CLASSES",
     "SELL_GROUP_SIZE",
 ]
 
@@ -59,8 +60,16 @@ class LocalBackend(EngineBackend):
     read — the aggregate product ``A_G @ M_p`` never exists.
     """
 
-    def __init__(self, engine):
+    def __init__(self, engine, shared: "LocalBackend" = None):
         super().__init__(engine)
+        # A MixedBackend's sub-implementations pass ``shared=`` to alias the
+        # owner's stage tables, bag tables and dense adjacency instead of
+        # shipping a second copy of each to the device.
+        if shared is not None:
+            self.stage_tables: Dict = shared.stage_tables
+            self.bag_tables: Dict = shared.bag_tables
+            self._bag_adj = shared._bag_adj
+            return
         self.stage_tables: Dict = build_stage_tables(
             engine.plan_ir, engine.column_batch, engine.device
         )
@@ -93,6 +102,12 @@ class LocalBackend(EngineBackend):
             self._spmm_counted,
             self.engine.policy.accum_dtype,
         )
+
+    def _group_aggregate(self, leader, m_p, stage_inputs):
+        """Per-exec-group dispatch seam: ``leader`` is the group's
+        ``(plan_idx, sub_idx)`` address.  Uniform backends ignore it;
+        :class:`MixedBackend` routes each group to its bound sub-impl."""
+        return self.aggregate_ema_grouped(m_p, stage_inputs)
 
     def counts_for_colors(self, colors: torch.Tensor) -> torch.Tensor:
         """(B, n) colorings -> (B, T) un-normalised colorful totals.
@@ -155,7 +170,9 @@ class LocalBackend(EngineBackend):
                         stage_inputs.append(
                             (slots[ir.canons[q][sub_m.active]], self.stage_tables[(q, j)])
                         )
-                    outs = self.aggregate_ema_grouped(slots[canons[sub.passive]], stage_inputs)
+                    outs = self._group_aggregate(
+                        (p_idx, i), slots[canons[sub.passive]], stage_inputs
+                    )
                     for (q, j), m_s in zip(members, outs):
                         slots[ir.canons[q][j]] = m_s.to(pol.store_dtype)
                 for dead in free_at.get(pos, ()):
@@ -261,8 +278,8 @@ class EdgesBackend(LocalBackend):
 
     name = "edges"
 
-    def __init__(self, engine):
-        super().__init__(engine)
+    def __init__(self, engine, shared=None):
+        super().__init__(engine, shared=shared)
         g = engine.graph
         self._src = torch.as_tensor(g.src, dtype=torch.long, device=engine.device)
         self._dst = torch.as_tensor(g.dst, dtype=torch.long, device=engine.device)
@@ -278,8 +295,8 @@ class EllBackend(LocalBackend):
 
     name = "ell"
 
-    def __init__(self, engine):
-        super().__init__(engine)
+    def __init__(self, engine, shared=None):
+        super().__init__(engine, shared=shared)
         nbr, mask = engine.graph.ell()
         self._nbr = torch.as_tensor(nbr, dtype=torch.long, device=engine.device)
         self._ell_mask = torch.as_tensor(mask, device=engine.device)
@@ -296,8 +313,8 @@ class SellBackend(LocalBackend):
 
     name = "sell"
 
-    def __init__(self, engine, group_size: int = SELL_GROUP_SIZE):
-        super().__init__(engine)
+    def __init__(self, engine, group_size: int = SELL_GROUP_SIZE, shared=None):
+        super().__init__(engine, shared=shared)
         dev = engine.device
         sell = build_sell(engine.graph, group_size=group_size)
         self._sell_padded_slots = sell.padded_slots
@@ -330,8 +347,8 @@ class DenseBackend(LocalBackend):
 
     name = "dense"
 
-    def __init__(self, engine):
-        super().__init__(engine)
+    def __init__(self, engine, shared=None):
+        super().__init__(engine, shared=shared)
         self._adj = torch.as_tensor(engine.graph.dense_adjacency(), device=engine.device)
 
     def spmm(self, m):
@@ -364,8 +381,8 @@ class BlockedEllBackend(LocalBackend):
 
     name = "blocked"
 
-    def __init__(self, engine):
-        super().__init__(engine)
+    def __init__(self, engine, shared=None):
+        super().__init__(engine, shared=shared)
         from repro_torch.kernels.spmm_blocked.ops import prepare_operand
         from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables
 
@@ -426,13 +443,55 @@ class CustomBackend(LocalBackend):
         return out.reshape(n, b, c).to(self.engine.policy.accum_dtype)
 
 
+#: name -> class for the uniform single-device strategies (what a
+#: TuningConfig's per-group bindings may name).
+LOCAL_BACKEND_CLASSES = {
+    "edges": EdgesBackend,
+    "ell": EllBackend,
+    "sell": SellBackend,
+    "dense": DenseBackend,
+    "blocked": BlockedEllBackend,
+}
+
+
 class MixedBackend(LocalBackend):
-    """Per-exec-group backends from a tuned configuration: not ported yet."""
+    """Per-exec-group backend dispatch from a tuned configuration (the
+    port of the reference's ``MixedBackend``).
+
+    One sub-implementation per distinct backend the
+    :class:`~repro_torch.tune.config.TuningConfig` names, all sharing this
+    owner's stage tables, bag tables and dense adjacency (``shared=``); a
+    ``blocked`` sub-impl still builds its own compact operand and fused
+    tables once.  The DP walk stays the inherited one; only the
+    :meth:`_group_aggregate` seam routes each shared-passive exec group to
+    its bound sub-impl.  Bag ops and ungrouped :meth:`spmm` calls run on
+    the config's ``default_backend``.
+    """
 
     name = "mixed"
 
-    def __init__(self, engine):
-        raise NotImplementedError(
-            "the mixed backend needs the tuning layer, not ported yet "
-            "(ROADMAP queue 1 item 9)"
-        )
+    def __init__(self, engine, tuning):
+        super().__init__(engine)
+        if tuning is None:
+            raise ValueError("MixedBackend needs a TuningConfig (tuning=...)")
+        self._tuning = tuning
+        self._bindings = tuning.bindings()
+        names = {tuning.default_backend, *self._bindings.values()}
+        unknown = names - set(LOCAL_BACKEND_CLASSES)
+        if unknown:
+            raise ValueError(f"mixed backend binds unknown local backends {sorted(unknown)}")
+        self._impls = {
+            name: LOCAL_BACKEND_CLASSES[name](engine, shared=self) for name in sorted(names)
+        }
+        self._default = self._impls[tuning.default_backend]
+
+    def spmm(self, m):
+        return self._default.spmm(m)
+
+    def _group_aggregate(self, leader, m_p, stage_inputs):
+        name = self._bindings.get(leader, self._tuning.default_backend)
+        return self._impls[name].aggregate_ema_grouped(m_p, stage_inputs)
+
+    def transient_elements(self) -> int:
+        # one chunk's scratch peaks at the widest sub-impl's slice
+        return max(impl.transient_elements() for impl in self._impls.values())

@@ -31,17 +31,21 @@ other tenants.  The loop is single-threaded and deterministic: a fixed
 submission order and fixed seeds reproduce every launch, estimate, and
 stopping decision exactly.  Failures are classified (transient: retry with
 backoff; memory: walk the degradation ladder, which never leaves the
-configured backend; deterministic: fail, and quarantine the key on repeat), and deadlines resolve armed queries with
-their running estimate.
+configured backend; deterministic: fail, and quarantine the key on repeat,
+which also drops the key's tuned cache entry), and deadlines resolve armed
+queries with their running estimate.
 
-Not ported yet: the asynchronous front-end (``repro.serve.frontend``) and
-the autotuning hooks (ROADMAP queue 1 item 9), which raise.
+Autotuning hooks: :meth:`CountingService.tune` runs the port's tuner
+(:func:`repro_torch.tune.search.tune`) on the service's device and drops
+the cached engines it makes stale; under ``REPRO_TUNE=full`` a submission
+of an un-tuned workload queues a background tune, which the asynchronous
+front-end (:mod:`repro_torch.serve.frontend`) drains through
+:meth:`CountingService.pop_pending_tune`.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -56,6 +60,7 @@ from repro_torch.core.graph import Graph
 from repro_torch.core.prng import fold_in, prng_key
 from repro_torch.core.templates import Template, connected_graphlets, get_template
 from repro_torch.device import resolve_device
+from repro_torch.exec.select import tune_mode
 from repro_torch.plan.cost import DEFAULT_MEMORY_BUDGET_BYTES, admission_estimate, degradation_ladder
 
 from .cache import EngineCache
@@ -258,6 +263,11 @@ class CountingService:
             "invalid": 0,
             "non_finite": 0,
         }
+        # autotuning: ``REPRO_TUNE=full`` records un-tuned engine keys
+        # here; a front-end drains them one per scheduler round
+        self._tune_pending: Deque[Tuple[str, Tuple[Template, ...]]] = deque()
+        self._tune_requested: set = set()  # engine keys ever queued/tuned
+        self.tunes_completed = 0
 
     # ------------------------------------------------------------------
     # Registration & submission
@@ -732,6 +742,10 @@ class CountingService:
             )
         if until is not None:
             self._cache.invalidate(key)  # a fresh build gets a clean slate
+            # the ladder must not fight a poisoned tuned config: quarantine
+            # drops the key's tuned cache entry so the post-quarantine
+            # rebuild re-resolves from the heuristic
+            self._drop_tuned_entry(key)
 
     def _reprice_rung(self, key: Tuple, query: Query, rung) -> int:
         """``admission_estimate`` re-prices the rung's launch residency
@@ -852,17 +866,98 @@ class CountingService:
         return est.chunk_bytes
 
     def _maybe_queue_tune(self, key: Tuple, graph_ref: str, tset) -> None:
-        """``REPRO_TUNE=full`` asks for background tuning of new workloads,
-        which needs the tuning layer (not ported yet)."""
-        if os.environ.get("REPRO_TUNE", "").strip() == "full":
-            raise NotImplementedError(
-                "REPRO_TUNE=full: autotuning is not ported yet (ROADMAP queue 1 item 9)"
-            )
+        """``REPRO_TUNE=full``: record an un-tuned workload for background
+        tuning (drained by a front-end scheduler via :meth:`pop_pending_tune`
+        -> :meth:`tune`, one per round — off the query path).
+
+        ``key[-1]`` is the tuning fragment: non-``None`` means a tuned
+        config already resolved, so there is nothing to schedule.  Only
+        auto-resolved services tune — an explicit service ``backend=`` is
+        an operator decision the tuner must not fight.
+        """
+        if (
+            self.backend != "auto"
+            or key[-1] is not None
+            or key in self._tune_requested
+            or tune_mode() != "full"
+        ):
+            return
+        self._tune_requested.add(key)
+        self._tune_pending.append((graph_ref, tset))
+        logger.debug("queued background tune for %s (%d templates)", graph_ref, len(tset))
+
+    def pop_pending_tune(self) -> Optional[Tuple[str, Tuple[Template, ...]]]:
+        """Next ``(graph_ref, templates)`` awaiting a background tune, or
+        ``None`` (``REPRO_TUNE=full`` submissions queue them)."""
+        return self._tune_pending.popleft() if self._tune_pending else None
 
     def tune(self, graph_ref: str, templates, **tune_kwargs):
-        """Measurement-driven tuning of ``(graph_ref, templates)``: needs the
-        tuning layer, not ported yet."""
-        raise NotImplementedError("autotuning is not ported yet (ROADMAP queue 1 item 9)")
+        """Tune ``(graph_ref, templates)`` now on the service's device;
+        returns the :class:`~repro_torch.tune.search.TuneResult`.
+
+        Runs :func:`repro_torch.tune.search.tune` with this service's
+        device, dtype policy and memory budget, persists the winner in the
+        tuning cache, then invalidates every cached engine (and memoized
+        degradation ladder) for that ``(graph, canons)`` pair so the next
+        build re-resolves — with ``REPRO_TUNE`` at its default ``cached``,
+        that build binds the freshly tuned config.  Probe launches run
+        inline on the calling thread; a probe that fails raises.
+        """
+        from repro_torch.plan.ir import template_set_canons
+        from repro_torch.tune.search import tune as run_tune
+
+        graph = self.graph(graph_ref)
+        tset = self._resolve_templates(templates)
+        tune_kwargs.setdefault("device", self.device)
+        tune_kwargs.setdefault("dtype_policy", self.dtype_policy)
+        tune_kwargs.setdefault("memory_budget_bytes", self.memory_budget_bytes)
+        result = run_tune(graph, list(tset), **tune_kwargs)
+        canons = template_set_canons(tset)
+        dropped = 0
+        for k in list(self._cache.keys()):
+            if k[1] == result.graph_signature and k[2] == canons:
+                self._cache.invalidate(k)
+                self._ladders.pop(k, None)
+                dropped += 1
+        self._tune_requested.add(self.engine_key_for(graph_ref, tset))
+        self.tunes_completed += 1
+        logger.info(
+            "tuned %s: winner=%s (%d stale cached engines dropped)",
+            graph_ref, result.config.describe(), dropped,
+        )
+        return result
+
+    def _drop_tuned_entry(self, key: Tuple) -> None:
+        """Quarantine interop: a deterministically-failing engine key must
+        not be re-picked from the tuning cache, so its tuned entry (the
+        ``key[-1]`` fragment marks one) is removed from the cache file.
+
+        Except on a CUDA card for a config that binds ``blocked`` (as its
+        default or for any group): dropping it would rebuild the key on the
+        heuristic's pick, below ``BLOCKED_MIN_VERTICES`` the plain ``edges``
+        path, so a failing kernel A/B would be hidden behind a plain
+        version.  That entry stays; the key stays quarantined and keeps
+        failing loudly, as a spent ladder ends in ``memory_exhausted``."""
+        if len(key) < 9 or key[-1] is None:
+            return
+        _tag, default_backend, group_backends = key[-1][:3]
+        binds_blocked = default_backend == "blocked" or any(
+            b == "blocked" for _, b in group_backends
+        )
+        if self.device.type == "cuda" and binds_blocked:
+            logger.warning(
+                "quarantined engine key %s keeps its tuned entry: it binds "
+                "the blocked kernels, and no plain path stands in for them",
+                key[3],
+            )
+            return
+        try:
+            from repro_torch.tune.cache import invalidate_entry
+
+            if invalidate_entry(key[1], key[2], device=self.device):
+                logger.info("quarantine invalidated tuned entry for engine key %s", key[3])
+        except Exception as exc:  # pragma: no cover - defensive
+            logger.debug("tuned-entry invalidation failed: %s", exc)
 
     def prewarm(self, graph_ref: str, templates) -> Tuple:
         """Build the engine a query shape will need and run one padded dummy
@@ -956,6 +1051,14 @@ class CountingService:
             by_key[key] = by_key.get(key, 0) + 1
         now = self.clock.now()
         return {
+            "tuning": {
+                "mode": tune_mode(),
+                "tunes_completed": self.tunes_completed,
+                "pending": len(self._tune_pending),
+                "tuned_cached_engines": sum(
+                    1 for k in self._cache.keys() if len(k) >= 9 and k[-1] is not None
+                ),
+            },
             "cache": self._cache.counters(),
             "launches": len(self.launch_log),
             "launches_by_key": by_key,

@@ -281,7 +281,8 @@ def test_served_rows_equal_count_keys_on_fold_in_keys():
         assert np.array_equal(q.per_iteration(), engine.count_keys(keys))
 
 
-def test_warm_requery_builds_nothing_and_graphlet_profile():
+def test_warm_requery_builds_nothing_and_graphlet_profile(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tuned.json"))
     svc = _service(PORT, chunk_size=4)
     g = port_graph.erdos_renyi_graph(8, 22, seed=2)
     svc.register_graph("tiny", g)
@@ -299,8 +300,15 @@ def test_warm_requery_builds_nothing_and_graphlet_profile():
     for name, est in want.items():
         assert prof[name].mean == pytest.approx(est.mean, rel=RTOL, abs=RTOL)
     assert svc.admission_bytes("tiny", "triangle") > 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        svc.tune("tiny", "triangle")
+    # tuning is ported: a tune drops the stale warm engine of its workload
+    g3 = connected_graphlets(3)
+    key = svc.engine_key_for("tiny", g3)
+    assert svc.engine(key) is not None
+    result = svc.tune("tiny", g3, top_n=2, probes=1,
+                      measure_fn=lambda engine, probes: 10.0 * engine.chunk_size)
+    assert result.device == "cpu" and svc.engine(key) is None
+    assert svc.stats()["tuning"]["tunes_completed"] == 1
+    assert svc.engine_key_for("tiny", g3)[-1] == result.config.key_fragment()
 
 
 STREAMS = {

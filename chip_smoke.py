@@ -114,6 +114,27 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``forward``, then 8 requests with prompts of 16-512 tokens, each of
    which must finish with its 16 tokens; 4 more run under
    ``torch.profiler``.
+9. Kernel A's wide path at full width (``[wide]``), once the LM weights
+   and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
+   u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
+   sizes whose one-coloring DP state fits the 48 GiB budget.  Each stage
+   whose row does not fit shared memory is launched twice at one coloring
+   (bitwise equal), held against a plain version (the SpMM half with
+   ``index_add_``, the eMA by blocks of outputs), and timed beside its bound
+   and ``torch.sparse.mm`` on its SpMM half.  Then one ``count_keys_chunk``
+   through the ``blocked`` engine, whose picker must choose a chunk of 1,
+   launches kernel A once per stage, and ``compiled_memory_analysis`` must
+   stay within the budget.  Totals past the fp32 range at this size are
+   reported as the caveat the port shares with the reference; the totals
+   are held against the plain ``edges`` engine within ``TOTALS_RTOL`` at
+   :data:`WIDE_GATE_N`, the largest power of two where both stay finite
+   (the ``blocked`` totals at twice that n are recorded beside them).
+10. The memory model on the card (``[memory]``): ``compiled_memory_analysis``
+   of phase 4's u12 engine, phase 5b's 4-vertex motif engine and the u18 and
+   u20 engines, written as ``memory_model`` rows into a temporary file that
+   ``REPRO_FUSION_SLACK_BENCH`` names for the whole run (no earlier phase
+   finds rows there), then the fusion slack ``load_fusion_slack`` derives
+   from them and the chunk each engine would pick at that slack.
 
 The second-to-last line of output is the ``kernels`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
@@ -208,6 +229,26 @@ FRONTEND_QUERIES_PER_TENANT = 16
 FRONTEND_ITERATIONS = 16
 FRONTEND_FAULT_RATE = 1 / 8
 FRONTEND_FAULT_SEED = 0
+
+#: Phase 9 ([wide]): kernel A's wide path at full width, u18 and u20 on
+#: R-MAT at the main cell's density (8 sampled edges per vertex, seed 1), at
+#: the largest n whose one-coloring DP state (79,611 and 354,066 columns)
+#: fits the 48 GiB budget.  Their totals pass fp32's range there, so the
+#: totals are held against the plain ``edges`` engine at the largest power
+#: of two where both stay finite: u18 at n = 4096 reaches 1.23e37 and u20 at
+#: 2048 1.04e38, one size up both are inf (H100 80GB HBM3 at 700 W); the
+#: ``edges`` engine takes 4 and 15 s there, under the 60 s it may take.
+WIDE_CELLS = (("u18", 1 << 17), ("u20", 1 << 15))
+WIDE_EDGES_PER_VERTEX = 8
+WIDE_SEED = 1
+WIDE_GATE_N = {"u18": 1 << 12, "u20": 1 << 11}
+#: Most bytes one streamed slice of the gate's ``edges`` engine may gather
+#: (``(|E| + n) * column_batch`` floats): its column batch is the widest
+#: power of two under this, since at the default 16 columns u20's
+#: streamed tables alone would not fit the card.
+WIDE_GATE_GATHER_BYTES = 16 * 2**30
+#: Outputs per block of the wide stages' plain check (bounds its scratch).
+WIDE_PLAIN_BLOCK = 2048
 
 #: LM path: (b, s) of the flash checks, of the forward, and the serving run.
 FLASH_SHAPES = ((4, 4096), (1, 32768), (2, 4000))
@@ -1414,6 +1455,315 @@ def serve(cfg32, params, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: kernel A's wide path at full width
+# ---------------------------------------------------------------------------
+
+
+def rows_equal(a, b, step=4096) -> bool:
+    """``torch.equal`` over row blocks: no whole-size temporary."""
+    import torch
+
+    return all(torch.equal(a[i:i + step], b[i:i + step]) for i in range(0, a.shape[0], step))
+
+
+def wide_stages(template_name) -> list:
+    """The template's distinct ``(k, m, m_a)`` stages whose row does not fit
+    kernel A's shared-memory budget (:func:`spmm_ema.ops.row_fits`)."""
+    from repro_torch.core.colorsets import binom
+    from repro_torch.kernels.spmm_ema.ops import row_fits
+
+    return [(k, m, m_a) for k, m, m_a in fused_geometries(template_name)
+            if not row_fits(binom(k, m - m_a), binom(k, m_a))]
+
+
+def check_wide_stage(operand, k, m, m_a, device) -> dict:
+    """One wide stage at one coloring (the chunk the engine picks): two
+    launches bitwise equal, the kernel against a plain version (the SpMM
+    half with ``index_add_`` in column chunks, then the eMA by blocks of
+    outputs, each in split order; the whole plain two-pass does not fit the
+    card next to the kernel's output), the launch time, its bound, and
+    ``torch.sparse.mm`` on the ``(n, C_p)`` passive state (the SpMM half)."""
+    import torch
+
+    from repro_torch.core.colorsets import binom, build_split_table
+    from repro_torch.kernels.spmm_blocked.ref import spmm_ref
+    from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, spmm_ema
+
+    n, e = operand.n, operand.num_directed
+    table = build_split_table(k, m, m_a)
+    c_p, c_a = binom(k, m - m_a), binom(k, m_a)
+    tables = prepare_stage_tables(table.idx_a, table.idx_p, c_p, c_a, device)
+    if not tables.wide:
+        raise AssertionError(f"stage {(k, m, m_a)} does not take the wide path")
+    gen = torch.Generator(device=device).manual_seed(3)
+    m_p = torch.rand((n, 1, c_p), generator=gen, device=device)
+    m_aa = torch.rand((n, 1, c_a), generator=gen, device=device)
+    got = spmm_ema(operand, m_p, m_aa, tables)
+    row = {"stage": [k, m, m_a], "n": n, "c_p": c_p, "c_a": c_a, "n_out": table.n_out,
+           "splits": table.n_splits, "tile_p": tables.tile_p,
+           "shape": f"k={k} m={m} m_a={m_a} B=1 C_p={c_p} C_a={c_a} n_out={table.n_out} "
+                    f"splits={table.n_splits} n={n} (wide)"}
+    if device.type == "cuda":
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    again = spmm_ema(operand, m_p, m_aa, tables)
+    if device.type == "cuda":
+        stop.record()
+        torch.cuda.synchronize()
+        row["ms"] = start.elapsed_time(stop)
+    row["bitwise_repeatable"] = rows_equal(got, again)
+    del again
+    if not row["bitwise_repeatable"]:
+        raise AssertionError(f"spmm_ema wide {(k, m, m_a)}: two launches differ")
+
+    t0 = time.perf_counter()
+    agg = spmm_ref(operand.src, operand.dst, n, m_p.reshape(n, c_p), col_chunk=256)
+    idx_a, idx_p = tables.idx_a.to(device), tables.idx_p.to(device)
+    m_a2, worst = m_aa.reshape(n, c_a), 0.0
+    for o0 in range(0, table.n_out, WIDE_PLAIN_BLOCK):
+        o1 = min(table.n_out, o0 + WIDE_PLAIN_BLOCK)
+        want = torch.zeros((n, o1 - o0), dtype=torch.float32, device=device)
+        for t in range(table.n_splits):
+            want += m_a2.index_select(1, idx_a[o0:o1, t]) * agg.index_select(1, idx_p[o0:o1, t])
+        worst = max(worst, max_abs_err(got[:, 0, o0:o1], want, KERNEL_RTOL,
+                                       f"spmm_ema wide {(k, m, m_a)} outputs {o0}:{o1}"))
+        del want
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    row["max_abs_err"] = worst
+    del agg, got
+    nbytes = (n * (c_p + c_a + table.n_out) * 4 + (n + 1) * 4 + e * 4
+              + table.n_out * table.n_splits * 8)
+    flops = e * c_p + 2 * n * table.n_out * table.n_splits
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        csr = torch.sparse_csr_tensor(
+            operand.row_ptr.long(), operand.src.long(),
+            torch.ones(e, dtype=torch.float32, device=device), size=(n, n))
+        flat = m_p.reshape(n, c_p)
+        row["library_spmm_half_ms"] = time_ms(lambda: torch.sparse.mm(csr, flat), 2)
+        row["over_bound"] = row["ms"] / row["bound_ms"]
+        del csr, flat
+    del m_p, m_aa
+    log(f"[wide] {json.dumps(row)}")
+    return row
+
+
+def gate_column_batch(graph, template) -> int:
+    """The gate's ``edges`` column batch: the widest passive state, or the
+    widest power of two whose slice gathers at most
+    :data:`WIDE_GATE_GATHER_BYTES`."""
+    from repro_torch.plan.ir import build_template_plan
+
+    widest = build_template_plan([template]).max_passive_columns
+    per_column = (graph.num_directed + graph.n) * 4
+    if widest * per_column <= WIDE_GATE_GATHER_BYTES:
+        return widest
+    cb = 16
+    while cb * 2 * per_column <= WIDE_GATE_GATHER_BYTES:
+        cb *= 2
+    return cb
+
+
+def wide_gate(template, n, keys, device) -> dict:
+    """``blocked`` against ``edges`` on R-MAT at ``n`` (one coloring each)."""
+    import numpy as np
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.graph import rmat_graph
+
+    gate = rmat_graph(n, WIDE_EDGES_PER_VERTEX * n, seed=WIDE_SEED)
+    cb = gate_column_batch(gate, template)
+    t0 = time.perf_counter()
+    got = CountingEngine(gate, [template], backend="blocked", chunk_size=1,
+                         device=device).count_keys(keys)
+    blocked_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = CountingEngine(gate, [template], backend="edges", chunk_size=1, column_batch=cb,
+                          device=device).count_keys(keys)
+    edges_s = time.perf_counter() - t0
+    finite = bool(np.all(np.isfinite(got)) and np.all(np.isfinite(want)))
+    return {"n": gate.n, "directed_edges": gate.num_directed, "edges_column_batch": cb,
+            "blocked": got[:, 0].tolist(), "edges": want[:, 0].tolist(),
+            "blocked_seconds": blocked_s, "edges_seconds": edges_s,
+            "finite": finite,
+            "max_rel_diff_vs_edges": float(np.max(np.abs(got - want) / np.abs(want)))
+            if finite else None}
+
+
+def wide_cell(template_name, n, device, budget) -> dict:
+    """One template at full width: its wide stages checked and timed, then
+    one ``count_keys_chunk`` through the ``blocked`` engine (which must pick
+    a chunk of 1 under the budget), kernel A launched once per stage, and
+    ``compiled_memory_analysis`` within the budget; the totals against the
+    ``edges`` engine on the gate graph."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.graph import rmat_graph
+    from repro_torch.core.prng import prng_key, split
+    from repro_torch.core.templates import get_template
+    from repro_torch.kernels.spmm_blocked.ops import prepare_operand
+    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+
+    template = get_template(template_name)
+    graph = rmat_graph(n, WIDE_EDGES_PER_VERTEX * n, seed=WIDE_SEED)
+    log(f"[graph] rmat n={graph.n} directed edges={graph.num_directed} "
+        f"max degree={graph.max_degree()} ({template_name})")
+    operand = prepare_operand(graph, device)
+    rows = [check_wide_stage(operand, k, m, m_a, device) for k, m, m_a in wide_stages(template_name)]
+    del operand
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    kwargs = {} if device.type == "cuda" else {"device": device}
+    t0 = time.perf_counter()
+    engine = CountingEngine(graph, [template], backend="blocked", memory_budget_bytes=budget,
+                            **kwargs)
+    build_s = time.perf_counter() - t0
+    if engine.chunk_size != 1:
+        raise AssertionError(f"[wide] {template_name}: the picker chose a chunk of "
+                             f"{engine.chunk_size}, not 1")
+    stages = sum(1 for st in engine.plan_ir.stages if not st.is_leaf)
+    keys = split(prng_key(0, device), 1)
+    reset_counting_launches()
+    t0 = time.perf_counter()
+    est = engine.count_keys_chunk(keys)  # returns on the host: synchronised
+    run_s = time.perf_counter() - t0
+    launches = counting_launches()
+    device_launches = spmm_ema.device_launches
+    if launches["spmm_ema"] != stages:
+        raise AssertionError(f"[wide] {template_name}: kernel A launched {launches['spmm_ema']} "
+                             f"times for {stages} stages")
+    mem_rec = memory_record(f"rmat{graph.n}/{template_name}", engine)
+    memory = {k: mem_rec[k] for k in ("predicted_bytes", "actual_temp_bytes", "ratio")}
+    if memory["actual_temp_bytes"] is not None and memory["actual_temp_bytes"] > budget:
+        raise AssertionError(f"[wide] {template_name}: one chunk took "
+                             f"{memory['actual_temp_bytes']:.0f} bytes, past the budget {budget}")
+    finite = bool(np.all(np.isfinite(est)))
+    rec = {"template": template_name, "n": graph.n, "directed_edges": graph.num_directed,
+           "max_degree": int(graph.max_degree()), "peak_columns": engine.peak_columns(),
+           "chunk_size": engine.chunk_size, "engine_build_s": build_s,
+           "seconds_per_coloring": run_s, "stages": stages, "launches": launches,
+           "device_launches": device_launches, "estimate": est[:, 0].tolist(),
+           "totals_finite": finite, "memory": memory,
+           "bytes_per_coloring": engine.bytes_per_coloring(), "wide_stages": rows}
+    if not finite:
+        # the fp32 caveat the port shares with the reference (u12 already
+        # reaches ~2.3e37): recorded, not hidden; the exactness gate below
+        # runs where both backends' totals are finite
+        log(f"[wide] {template_name}: totals not finite in fp32 at n={graph.n} "
+            f"({est[:, 0].tolist()}): the fp32 range caveat shared with the reference")
+    del engine
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    reset_counting_launches()
+    gate = wide_gate(template, WIDE_GATE_N[template_name], keys, device)
+    if counting_launches()["spmm_ema"] != stages:
+        raise AssertionError(f"[wide] {template_name} gate: kernel A launched "
+                             f"{counting_launches()['spmm_ema']} times for {stages} stages")
+    if not gate["finite"]:
+        raise AssertionError(f"[wide] {template_name} gate n={gate['n']}: totals not finite "
+                             f"(blocked {gate['blocked']}, edges {gate['edges']})")
+    if not np.allclose(gate["blocked"], gate["edges"], rtol=TOTALS_RTOL, atol=0.0):
+        raise AssertionError(f"[wide] {template_name} gate n={gate['n']}: blocked "
+                             f"{gate['blocked']} vs edges {gate['edges']} beyond rtol={TOTALS_RTOL}")
+    # one size up, recorded: whether the gate runs at the largest n where
+    # fp32 holds the totals
+    up = rmat_graph(2 * gate["n"], 2 * WIDE_EDGES_PER_VERTEX * gate["n"], seed=WIDE_SEED)
+    over = CountingEngine(up, [template], backend="blocked", chunk_size=1,
+                          device=device).count_keys(keys)
+    gate["next_n"], gate["next_n_totals"] = up.n, over[:, 0].tolist()
+    rec["gate"] = gate
+    log(f"[wide] {json.dumps({k: v for k, v in rec.items() if k != 'wide_stages'})}")
+    return rec, mem_rec
+
+
+def wide_path(device, budget) -> tuple:
+    """Phase 9 over :data:`WIDE_CELLS`; returns the record and each cell's
+    memory record for phase 10."""
+    cells, mem_recs = zip(*(wide_cell(t, n, device, budget) for t, n in WIDE_CELLS))
+    return ({"cells": list(cells),
+             "launches": {"spmm_ema": sum(c["launches"]["spmm_ema"] for c in cells)},
+             "rows": [r for c in cells for r in c["wide_stages"]]}, list(mem_recs))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the memory model on the card
+# ---------------------------------------------------------------------------
+
+
+def memory_record(name, engine) -> dict:
+    """``compiled_memory_analysis`` of one engine, with what phase 10 needs
+    to price it again at another fusion slack."""
+    return {"engine": name, "backend": engine.backend, "chunk_size": engine.chunk_size,
+            "applied_fusion_slack": engine.cost.fusion_slack,
+            "transient_elements": engine.backend_impl.transient_elements(),
+            "resident_elements": engine.backend_impl.resident_elements(),
+            "plan": engine.plan_ir, "graph": engine.graph,
+            **engine.compiled_memory_analysis()}
+
+
+def memory_engine_analysis(name, graph, templates, device, budget) -> dict:
+    """Build one engine as its phase did (``backend="auto"``) and measure
+    one chunk's memory."""
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+
+    kwargs = {} if device.type == "cuda" else {"device": device}
+    engine = CountingEngine(graph, templates, memory_budget_bytes=budget, **kwargs)
+    rec = memory_record(name, engine)
+    del engine
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def memory_path(records, device, budget) -> dict:
+    """Write the engines' ``memory_model`` rows into the run's slack file
+    (``REPRO_FUSION_SLACK_BENCH``), read the fusion slack back through
+    ``load_fusion_slack`` for this card, and print what each engine's chunk
+    would be at that slack."""
+    import torch
+
+    from repro_torch.plan.cost import (
+        BENCH_ENV_VAR,
+        CostModel,
+        load_fusion_slack,
+        memory_model_row,
+    )
+
+    path = os.environ[BENCH_ENV_VAR]
+    rows = []
+    for rec in records:
+        if rec["ratio"] is None:
+            raise AssertionError(f"[memory] {rec['engine']}: no measured bytes on {device}")
+        rows.append(memory_model_row(f"chip_smoke/{rec['engine']}/memory_model", rec, device,
+                                     rec["applied_fusion_slack"]))
+    with open(path, "w") as fh:
+        json.dump({"rows": rows}, fh, indent=1)
+    slack = load_fusion_slack(path, device)
+    out = []
+    for rec in records:
+        cm = CostModel(rec["plan"], rec["graph"], torch.float32, fusion_slack=slack)
+        per = cm.bytes_per_coloring(rec["transient_elements"], rec["resident_elements"])
+        out.append({"engine": rec["engine"], "backend": rec["backend"],
+                    "predicted_bytes": rec["predicted_bytes"],
+                    "actual_temp_bytes": rec["actual_temp_bytes"], "ratio": rec["ratio"],
+                    "chunk_size": rec["chunk_size"],
+                    "chunk_at_derived_slack": cm.pick_chunk_size(per, budget),
+                    "bytes_per_coloring_at_derived_slack": per})
+    result = {"rows": rows, "derived_fusion_slack": slack, "engines": out}
+    log(f"[memory] {json.dumps(result)}")
+    return result
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_record(name, path, source, replaces, launches, rows, timed=None) -> dict:
@@ -1463,6 +1813,9 @@ def main(argv=None) -> int:
     # a tuned entry, and nothing outlives the run
     tune_dir = tempfile.mkdtemp(prefix="chip-smoke-tuning-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tune_dir, "TUNED_counting.json")
+    # likewise one memory-model file, written only by the last phase
+    # ([memory]): every engine before it prices with the uncalibrated model
+    os.environ["REPRO_FUSION_SLACK_BENCH"] = os.path.join(tune_dir, "BENCH_counting.json")
     try:
         return run(args, device)
     finally:
@@ -1501,7 +1854,6 @@ def run(args, device) -> int:
     main = main_path(graph, TEMPLATE, device, MEMORY_BUDGET_BYTES, with_profile=args.profile)
     if main["chunk_size"] != EMA_CHUNK:
         raise AssertionError(f"chunk {main['chunk_size']} != the {EMA_CHUNK} the kernels were checked at")
-    del graph
     torch.cuda.empty_cache()
     exactness(device)
 
@@ -1518,7 +1870,6 @@ def run(args, device) -> int:
     tuned = tune_path({"rmat2k": rmat_graph(**TABLE_III_GRAPH_SPEC), "rmat8k": motif_graph},
                       device, MEMORY_BUDGET_BYTES)
     front = frontend_path(motif_graph, device, MEMORY_BUDGET_BYTES)
-    del motif_graph
     torch.cuda.empty_cache()
     log(f"[time] counting phases done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1531,19 +1882,35 @@ def run(args, device) -> int:
     torch.cuda.empty_cache()
     log(f"[time] LM phases done at {time.perf_counter() - t_start:.1f} s")
 
+    # the LM weights and every earlier engine are freed: the wide cells'
+    # 41.7 and 46.4 GB of DP state fit beside nothing else
+    wide, wide_memory = wide_path(device, MEMORY_BUDGET_BYTES)
+    memory = memory_path([
+        memory_engine_analysis(f"rmat{graph.n}/{TEMPLATE}", graph, [graphlet(TEMPLATE)], device,
+                               MEMORY_BUDGET_BYTES),
+        memory_engine_analysis(f"rmat{motif_graph.n}/graphlets4", motif_graph,
+                               [graphlet(t) for t in MOTIF_SETS[1][1]], device,
+                               MEMORY_BUDGET_BYTES),
+        *wide_memory,
+    ], device, MEMORY_BUDGET_BYTES)
+    del graph, motif_graph
+    log(f"[time] wide and memory phases done at {time.perf_counter() - t_start:.1f} s")
+
     kernels = [
-        # times: the u12 stages of the tree path at 2 colorings
+        # times: the u12 stages of the tree path at 2 colorings; the wide
+        # stages of u18 and u20 are in "shapes" (and the error) only
         dict(kernel_record(
             "spmm_ema", "counting", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
             "src/repro/kernels/spmm_ema/kernel.py:48", main["launches"]["spmm_ema"],
-            ema_rows,
+            ema_rows + wide["rows"], timed=ema_rows,
         ), library_spmm_half_ms=sum(r["library_spmm_half_ms"] for r in ema_rows),
             device_launches=main["device_launches"]["spmm_ema"],
             launches_by_path={"tree": main["launches"]["spmm_ema"],
                               "motif": motif["launches"]["spmm_ema"],
                               "service": served["launches"]["spmm_ema"],
                               "tune": tuned["launches"]["spmm_ema"],
-                              "frontend": front["launches"]["spmm_ema"]}),
+                              "frontend": front["launches"]["spmm_ema"],
+                              "wide": wide["launches"]["spmm_ema"]}),
         # times: one launch at each bag width of the motif path (its
         # launches), the widths of one coloring and the n=2^20 widths in
         # "shapes" only
@@ -1577,7 +1944,8 @@ def run(args, device) -> int:
             {"card": card, "colorings": colorings, "table_iii": table_iii,
              "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
-             "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served, "kernels": kernels},
+             "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
+             "wide": wide, "memory": memory, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,9 @@
-"""LM config dataclass and the LM shape cells (copies of ``repro.configs.base``).
+"""Config dataclasses and the LM shape cells (copies of ``repro.configs.base``).
 
 Each ported architecture is a module in ``repro_torch.configs`` exporting
 ``CONFIG`` (the published configuration) and ``SMOKE_CONFIG`` (a reduced
-same-family config for CPU tests).  The GNN, recsys and subgraph configs
+same-family config for CPU tests): the LMs' :class:`LMConfig` and the
+paper's own workload, :class:`SubgraphConfig`.  The GNN and recsys configs
 come with their slices of the port.
 """
 
@@ -11,7 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
-__all__ = ["LMConfig", "ShapeCell", "LM_SHAPES"]
+__all__ = ["LMConfig", "SubgraphConfig", "ShapeCell", "LM_SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -84,6 +85,21 @@ class LMConfig:
         moe_layers = self.n_layers - self.first_k_dense
         inactive = (self.n_experts - self.moe_top_k) * ff_mult * d * self.moe_d_ff * moe_layers
         return full - inactive
+
+
+@dataclass(frozen=True)
+class SubgraphConfig:
+    """The paper's own workload: a graph of ``n_vertices`` / ``n_edges`` and
+    one tree template (``repro_torch.core.templates.get_template`` name)."""
+
+    name: str
+    n_vertices: int
+    n_edges: int
+    template: str
+    iterations: int = 1
+    block_size: int = 256
+    colorset_batch: int = 0  # 0 = no batching (paper's batch-size knob)
+    dtype: str = "float32"
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,12 @@
 """--arch registry of the port: architecture ids -> config modules.
 
-Only the dense-GQA LMs are ported.  Asking for any other architecture of
-the reference's registry raises ``NotImplementedError`` naming the ROADMAP
-item that ports it; an id the reference does not know raises ``KeyError``.
+The dense-GQA LMs and the paper's own workload (``subgraph2vec``, family
+``"subgraph"``) are ported.  Asking for any other architecture of the
+reference's registry raises ``NotImplementedError`` naming the ROADMAP item
+that ports it; an id the reference does not know raises ``KeyError``.  The
+reference's shape grids (``SUBGRAPH_SHAPES``, ``shapes_for``,
+``all_cells``) serve its launch dry-run and come with ``launch/*`` (ROADMAP
+queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ ARCHS: Dict[str, Tuple[str, str]] = {
     "nemotron-4-15b": ("lm", "repro_torch.configs.nemotron_4_15b"),
     "granite-8b": ("lm", "repro_torch.configs.granite_8b"),
     "granite-20b": ("lm", "repro_torch.configs.granite_20b"),
+    # the paper's own workload
+    "subgraph2vec": ("subgraph", "repro_torch.configs.subgraph2vec"),
 }
 
 # arch id of the reference's registry -> the ROADMAP item that ports it
@@ -28,7 +34,6 @@ _NOT_PORTED: Dict[str, str] = {
     "gcn-cora": "ROADMAP queue 1 item 15 (GNN)",
     "mace": "ROADMAP queue 1 item 15 (GNN)",
     "two-tower-retrieval": "ROADMAP queue 1 item 15 (recsys)",
-    "subgraph2vec": "ROADMAP queue 1 item 10 (benchmarks)",
 }
 
 

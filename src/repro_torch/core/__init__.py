@@ -31,7 +31,7 @@ from .counting import (
     spmm_ell,
 )
 from .engine import CountingEngine, DtypePolicy, EstimateResult, engine_cache_key, resolve_device
-from .estimator import estimate_embeddings, required_iterations
+from .estimator import estimate_embeddings, make_count_step, required_iterations
 from .graph import (
     BlockedELL,
     Graph,

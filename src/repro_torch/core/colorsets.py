@@ -269,22 +269,34 @@ def bucketed_split_entries(table: SplitTable, column_batch: int):
     """
     if column_batch <= 0:
         raise ValueError(f"column_batch must be positive, got {column_batch}")
-    n_out, _ = table.idx_a.shape
+    idx_a, idx_p = np.asarray(table.idx_a), np.asarray(table.idx_p)
+    n_out = idx_a.shape[0]
     c_p = binom(table.k, table.m_p)
+    n_batches = -(-c_p // column_batch)
+    # one stable sort by (batch, output) keeps each output's entries in
+    # split order; an entry's slot is its rank inside its (batch, output)
+    key = ((idx_p // column_batch) * n_out + np.arange(n_out)[:, None]).ravel()
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    counts = np.bincount(key, minlength=n_batches * n_out)
+    starts = np.cumsum(counts) - counts
+    slot = np.arange(skey.size) - starts[skey]
+    outs = skey % n_out
+    flat_a, flat_p = idx_a.ravel()[order], idx_p.ravel()[order]
+    bounds = np.searchsorted(skey // n_out, np.arange(n_batches + 1))
+    caps = counts.reshape(n_batches, n_out).max(axis=1, initial=0)
     batches = []
-    for lo in range(0, c_p, column_batch):
+    for b in range(n_batches):
+        lo, cap = b * column_batch, max(int(caps[b]), 1)
         width = min(column_batch, c_p - lo)
-        sel = (table.idx_p >= lo) & (table.idx_p < lo + width)  # (n_out, n_splits)
-        cap = int(sel.sum(axis=1).max(initial=0))
-        idx_a = np.zeros((n_out, max(cap, 1)), dtype=np.int32)
-        idx_p = np.zeros((n_out, max(cap, 1)), dtype=np.int32)
-        valid = np.zeros((n_out, max(cap, 1)), dtype=np.float32)
-        for o in range(n_out):
-            ts = np.nonzero(sel[o])[0]
-            idx_a[o, : ts.size] = table.idx_a[o, ts]
-            idx_p[o, : ts.size] = table.idx_p[o, ts] - lo
-            valid[o, : ts.size] = 1.0
-        batches.append((lo, width, idx_a, idx_p, valid if not valid.all() else None))
+        sl = slice(bounds[b], bounds[b + 1])
+        ia = np.zeros((n_out, cap), dtype=np.int32)
+        ip = np.zeros((n_out, cap), dtype=np.int32)
+        valid = np.zeros((n_out, cap), dtype=np.float32)
+        ia[outs[sl], slot[sl]] = flat_a[sl]
+        ip[outs[sl], slot[sl]] = flat_p[sl] - lo
+        valid[outs[sl], slot[sl]] = 1.0
+        batches.append((lo, width, ia, ip, valid if not valid.all() else None))
     return batches
 
 

@@ -246,8 +246,8 @@ class CountingEngine:
         self.k = self.plan_ir.k
         self.policy = DtypePolicy.resolve(dtype_policy)
 
-        # --- layer 2: the cost model (fusion slack stays at 1.0).
-        self.cost = CostModel(self.plan_ir, graph, self.policy.store_dtype)
+        # --- layer 2: the cost model, calibrated by this device's rows.
+        self.cost = CostModel(self.plan_ir, graph, self.policy.store_dtype, device=self.device)
 
         # backend resolution runs before the chunk, column-batch and budget
         # knobs are read: a tuned config supplies those the caller left None
@@ -331,6 +331,42 @@ class CountingEngine:
     def predicted_peak_bytes(self) -> int:
         """The chunk picker's live-footprint prediction for one chunk."""
         return self.chunk_size * self.bytes_per_coloring()
+
+    def compiled_memory_analysis(self, iterations: Optional[int] = None) -> Dict[str, Optional[float]]:
+        """Measure one chunk's temporary device memory against the chunk
+        picker's prediction: the fusion-slack calibration data (the
+        ``memory_model`` rows that :func:`repro_torch.plan.cost.
+        load_fusion_slack` folds back into the picker,
+        :func:`repro_torch.plan.cost.memory_model_row`).
+
+        On a card: synchronise, note ``memory_allocated()``, reset the
+        peak statistics, run one :meth:`count_keys_chunk` of
+        ``min(chunk_size, iterations)`` keys (padded to the chunk, as every
+        launch is), and take ``max_memory_allocated()`` less the noted
+        figure: the bytes the run allocated beyond what was live before, the
+        counterpart of XLA's ``temp_size_in_bytes``, which leaves out the
+        arguments.  A failing chunk raises.  On the CPU, which keeps no
+        allocation statistics, ``actual_temp_bytes`` and ``ratio`` are
+        ``None``, as the reference's are on a backend without
+        ``memory_analysis()``.
+
+        Returns ``{"predicted_bytes", "actual_temp_bytes", "ratio"}``
+        (``ratio`` = predicted / actual)."""
+        iters = int(iterations) if iterations else self.chunk_size
+        predicted = float(self.predicted_peak_bytes())
+        actual: Optional[float] = None
+        if self.device.type == "cuda":
+            keys = split(prng_key(0, self.device), max(1, min(self.chunk_size, iters)))
+            torch.cuda.synchronize(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            self.count_keys_chunk(keys)  # returns on the host: synchronised
+            actual = float(torch.cuda.max_memory_allocated(self.device) - before)
+        return {
+            "predicted_bytes": predicted,
+            "actual_temp_bytes": actual,
+            "ratio": (predicted / actual) if actual else None,
+        }
 
     def graph_signature(self) -> str:
         """Content hash of the graph (memoised; :meth:`Graph.signature`)."""

@@ -6,6 +6,7 @@ an (epsilon, delta) guarantee is ``ceil(p^-1 log(1/delta) / epsilon^2)``
 (Alon et al.).  With an ``epsilon`` / ``delta`` target the run streams
 through the serving layer's adaptive stopper instead
 (:func:`repro_torch.serve.stopping.adaptive_estimate`).
+``make_count_step`` is kept for callers that want the one-coloring step.
 """
 
 from __future__ import annotations
@@ -13,12 +14,18 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import torch
+
+from repro_torch.device import resolve_device
+
 from .colorsets import colorful_probability
+from .counting import CountingPlan, count_colorful_vectorized, normalize_count
 from .engine import CountingEngine, EstimateResult
 from .graph import Graph
+from .prng import as_keys, randint
 from .templates import Template
 
-__all__ = ["required_iterations", "EstimateResult", "estimate_embeddings"]
+__all__ = ["required_iterations", "EstimateResult", "estimate_embeddings", "make_count_step"]
 
 
 def required_iterations(template_or_k, epsilon: float, delta: float) -> int:
@@ -27,6 +34,33 @@ def required_iterations(template_or_k, epsilon: float, delta: float) -> int:
     k = template_or_k.k if isinstance(template_or_k, Template) else int(template_or_k)
     inv_p = 1.0 / colorful_probability(k)
     return int(math.ceil(inv_p * math.log(1.0 / delta) / (epsilon**2)))
+
+
+def make_count_step(
+    plan: CountingPlan,
+    n: int,
+    spmm_fn: Callable[[torch.Tensor], torch.Tensor],
+    ema_fn=None,
+    dtype: torch.dtype = torch.float32,
+    device=None,
+):
+    """One-coloring step: ``(2,)`` PRNG key -> normalised embedding estimate
+    (a 0-d tensor on ``device``; ``None``: the CUDA card).
+
+    The coloring is ``randint(key, (n,), 0, k)``, bit-equal to the
+    reference's ``jax.random.randint``; ``spmm_fn`` and ``ema_fn`` are those
+    of :func:`count_colorful_vectorized`.  Prefer :class:`CountingEngine`
+    (one launch sequence per chunk instead of per coloring) unless a custom
+    ``ema_fn`` or per-key control is needed.
+    """
+    dev = resolve_device(device)
+
+    def step(key) -> torch.Tensor:
+        colors = randint(as_keys(key, dev), (n,), 0, plan.k)
+        raw = count_colorful_vectorized(plan, colors, spmm_fn, ema_fn=ema_fn, dtype=dtype)
+        return normalize_count(raw, plan)
+
+    return step
 
 
 def estimate_embeddings(

@@ -34,6 +34,7 @@ __all__ = [
     "rmat_graph",
     "erdos_renyi_graph",
     "grid_graph",
+    "graph_from_spec",
 ]
 
 
@@ -168,6 +169,27 @@ def grid_graph(rows: int, cols: int) -> Graph:
     edges.append(np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1))
     e = np.concatenate(edges, axis=0)
     return _canonicalize(rows * cols, e[:, 0].astype(np.int32), e[:, 1].astype(np.int32))
+
+
+def graph_from_spec(spec: str) -> Tuple[Graph, str]:
+    """The command lines' graph spec -> ``(graph, description)``:
+    ``rmat:N:E[:SEED]``, ``er:N:E[:SEED]`` or ``grid:R:C`` (seed 0 by
+    default).  Raises ``ValueError`` on a malformed spec."""
+    parts = spec.split(":")
+    kind = parts[0]
+    try:
+        if kind in ("rmat", "er"):
+            n, e = int(parts[1]), int(parts[2])
+            seed = int(parts[3]) if len(parts) > 3 else 0
+            if kind == "rmat":
+                return rmat_graph(n, e, seed=seed), f"rmat(n={n}, edges={e}, seed={seed})"
+            return erdos_renyi_graph(n, e, seed=seed), f"erdos-renyi(n={n}, edges={e}, seed={seed})"
+        if kind == "grid":
+            r, c = int(parts[1]), int(parts[2])
+            return grid_graph(r, c), f"grid({r}x{c})"
+    except (IndexError, ValueError) as exc:
+        raise ValueError(f"bad --graph spec {spec!r}: {exc}") from exc
+    raise ValueError(f"unknown graph kind {kind!r} (rmat | er | grid)")
 
 
 # ---------------------------------------------------------------------------

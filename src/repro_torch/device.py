@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "device_kind", "as_device_kind"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +20,19 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+def device_kind(device=None) -> str:
+    """The hardware key measurements are valid for: the CUDA device's name
+    (``torch.cuda.get_device_name``) for a card, ``"cpu"`` for the CPU.
+    ``device=None`` is the port's default device, the CUDA card."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type
+
+
+def as_device_kind(device) -> str:
+    """A string is already a device kind; a device (or ``None``, the
+    default device) gives its :func:`device_kind`."""
+    return device if isinstance(device, str) else device_kind(device)

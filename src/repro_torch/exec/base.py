@@ -69,7 +69,10 @@ class StageTables:
     tables (host numpy).  ``batches`` are the same entries re-bucketed by
     passive-column batch on the device
     (:func:`repro_torch.core.colorsets.bucketed_split_entries`) for the
-    streamed executor.  De-duplicated across stages by ``(k, m, m_a)``.
+    streamed executor; empty for a backend that does not stream (the
+    ``blocked`` kernels read their own layout, and at u20's widths the
+    batches would take hundreds of GB).  De-duplicated across stages by
+    ``(k, m, m_a)``.
     """
 
     k: int
@@ -84,10 +87,10 @@ class StageTables:
 
 
 def build_stage_tables(
-    plan, column_batch: int, device
+    plan, column_batch: Optional[int], device
 ) -> Dict[Tuple[int, int], StageTables]:
     """Bind a :class:`~repro_torch.plan.ir.TemplatePlan`'s split tables to
-    ``device`` at one fused-slice width.
+    ``device`` at one fused-slice width (``None``: no streamed batches).
 
     Returns ``(plan_idx, sub_idx) -> StageTables`` for every non-leaf stage
     of every tree counting plan (duplicates alias one table).
@@ -109,7 +112,7 @@ def build_stage_tables(
                     n_out=table.n_out,
                     idx_a_host=table.idx_a,
                     idx_p_host=table.idx_p,
-                    batches=tuple(
+                    batches=() if column_batch is None else tuple(
                         (
                             lo,
                             width,

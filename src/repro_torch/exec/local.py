@@ -60,6 +60,10 @@ class LocalBackend(EngineBackend):
     read — the aggregate product ``A_G @ M_p`` never exists.
     """
 
+    #: Whether stages stream the passive state in column batches (and so
+    #: need the tables bucketed by batch).
+    streams_columns = True
+
     def __init__(self, engine, shared: "LocalBackend" = None):
         super().__init__(engine)
         # A MixedBackend's sub-implementations pass ``shared=`` to alias the
@@ -71,7 +75,7 @@ class LocalBackend(EngineBackend):
             self._bag_adj = shared._bag_adj
             return
         self.stage_tables: Dict = build_stage_tables(
-            engine.plan_ir, engine.column_batch, engine.device
+            engine.plan_ir, engine.column_batch if self.streams_columns else None, engine.device
         )
         self.bag_tables: Dict = build_bag_tables(engine.plan_ir, engine.device)
         self._bag_adj = None
@@ -380,6 +384,7 @@ class BlockedEllBackend(LocalBackend):
     """
 
     name = "blocked"
+    streams_columns = False  # each stage is one kernel launch over all of C_p
 
     def __init__(self, engine, shared=None):
         super().__init__(engine, shared=shared)

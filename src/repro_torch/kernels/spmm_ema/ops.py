@@ -24,7 +24,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ __all__ = [
     "kernel_geometry",
     "row_fits",
     "scratch_bytes",
+    "check_int32_counts",
     "spmm_ema",
     "SOURCE",
     "SMEM_BUDGET_BYTES",
@@ -175,6 +176,54 @@ def scratch_bytes(operand: CompactOperand, bsz: int, c_p: int) -> int:
     return (part.n_segments + part.n_heavy) * bsz * c_p * 4 if part.n_heavy else 0
 
 
+#: Most colorings one launch takes: they are the grid's y dimension.
+MAX_GRID_Y = 65_535
+
+
+def check_int32_counts(operand: CompactOperand, bsz: int, tables: FusedStageTables) -> Dict[str, int]:
+    """The counts a launch of ``csrc/spmm_ema.cu`` over ``bsz`` colorings
+    of a stage holds in 32-bit ``int``s; raises ``ValueError`` naming the
+    first that does not fit, so that none wraps.
+
+    The heavy rows' aggregate runs over ``B * C_p`` columns: its column
+    index runs to that plus one tile, each segment is one warp item per
+    column tile, and the grid is those items in blocks of 8.  The light and
+    wide kernels' grid is the light ranges by the colorings (the grid's y
+    dimension, at most :data:`MAX_GRID_Y`); a CTA walks a pass's rows times
+    the column tiles of its passive tile, writes its rows' outputs, and
+    indexes the passive state up to ``C_p`` plus one tile.  The split
+    entries are indexed by output and split.  Row and state offsets are
+    64-bit already.
+    """
+    part = operand.partition
+    c_p, int32_max = tables.c_p, blocked_ops.INT32_MAX
+    heavy_cols = bsz * c_p
+    heavy_items = part.n_segments * -(-heavy_cols // blocked_ops.tile_width(heavy_cols))
+    rows_pass = _rows_per_pass(tables.tile_p if tables.wide else c_p + tables.c_a,
+                               blocked_ops.RANGE_ROWS)
+    counts = (
+        ("heavy column index (B x C_p + one tile)", heavy_cols + 128, int32_max),
+        ("heavy items (segments x column tiles)",
+         heavy_items + blocked_ops.KERNEL_WARPS, int32_max),
+        ("heavy grid (blocks of 8 items)", -(-heavy_items // blocked_ops.KERNEL_WARPS), int32_max),
+        ("light grid (ranges)", part.n_ranges, int32_max),
+        ("grid y (colorings)", bsz, MAX_GRID_Y),
+        ("light-range items (rows x column tiles)",
+         rows_pass * -(-tables.tile_p // blocked_ops.tile_width(c_p)), int32_max),
+        ("light-range outputs (rows x outputs)", rows_pass * tables.n_out, int32_max),
+        ("passive column index (C_p + one tile)", c_p + tables.tile_p, int32_max),
+        ("split entries (outputs x splits)", tables.n_out * tables.n_splits, int32_max),
+    )
+    for what, value, limit in counts:
+        if value > limit:
+            raise ValueError(
+                f"spmm_ema cannot launch at B={bsz}, C_p={c_p}, C_a={tables.c_a}, "
+                f"n_out={tables.n_out}: its {what} would be {value}, past the kernel's "
+                f"limit ({limit}); split the chunk or the stage"
+            )
+    return {what: value for what, value, _ in counts}
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.spmm_ema_launch
@@ -200,7 +249,8 @@ def spmm_ema(
     Each call that launches the CUDA kernel adds one to
     ``spmm_ema.launches`` and the number of device kernels it issued (1, or
     3 with heavy rows: their segments and reduction) to
-    ``spmm_ema.device_launches``.
+    ``spmm_ema.device_launches``.  A launch whose 32-bit counts would
+    wrap raises (:func:`check_int32_counts`).
     """
     n = operand.n
     if m_p.dim() != 3 or m_a.dim() != 3:
@@ -227,6 +277,7 @@ def spmm_ema(
     if not (m_p.is_contiguous() and m_a.is_contiguous()):
         raise ValueError("spmm_ema needs contiguous states")
     bsz, c_p, c_a = m_p.shape[1], tables.c_p, tables.c_a
+    check_int32_counts(operand, bsz, tables)
     part = operand.partition
     rows_pass = _rows_per_pass(tables.tile_p if tables.wide else c_p + c_a,
                                blocked_ops.RANGE_ROWS)

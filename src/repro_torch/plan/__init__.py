@@ -1,7 +1,6 @@
 """Plan layer of the port: the template-set IR and the cost model (the
-reference's ``repro.plan`` minus its fusion-slack loaders, which the port
-pins to 1.0, and minus the mesh column batch, which waits for the mesh
-slice)."""
+reference's ``repro.plan`` minus the mesh comm model, which waits for the
+mesh slice).  ``python -m repro_torch.plan`` is the plan inspector."""
 
 # Import-cycle anchor (see repro_torch.exec): core.engine imports this
 # package, so entering here first finishes loading the core submodules.
@@ -15,7 +14,9 @@ from .cost import (
     MAX_CHUNK_SIZE,
     CostModel,
     RankedCandidate,
+    fusion_slack_factor,
     load_backend_calibration,
+    load_fusion_slack,
     pick_chunk_size,
 )
 from .ir import PlanStage, TemplatePlan, build_template_plan, template_set_canons
@@ -24,6 +25,8 @@ __all__ = [
     "CostModel",
     "RankedCandidate",
     "load_backend_calibration",
+    "load_fusion_slack",
+    "fusion_slack_factor",
     "pick_chunk_size",
     "DEFAULT_MEMORY_BUDGET_BYTES",
     "MAX_CHUNK_SIZE",

@@ -24,12 +24,20 @@ over ``r`` vertex axes, so their resident figure is the plan's
 element-level liveness peak and their transient takes the bag ops' scratch
 into account (:meth:`CostModel.bag_transient_elements`).
 
-The reference corrects its byte model by a fusion-slack factor read from
-XLA:CPU ``memory_model`` rows in ``BENCH_counting.json``.  Those rows say
-nothing about PyTorch on a GPU, so the port never reads them: the factor
-is fixed at 1.0 until the port measures its own.  The time calibration
-is the tuner's: the ratios come from the port's own tuning cache, filled
-by stopwatch measurements on the engine's device.
+**Fusion slack.**  As in the reference, the byte model is corrected by a
+fusion-slack factor: the geometric mean of measured predicted/actual
+ratios, ``memory_model`` rows that
+:meth:`repro_torch.core.engine.CountingEngine.compiled_memory_analysis`
+feeds (effective bytes = analytic bytes / slack).  Two rules are the
+port's own, as the tuning cache's are: the rows live in the port's file
+(default ``build/memory/BENCH_counting.json``, never the reference's
+``BENCH_counting.json``, whose rows are XLA:CPU's), and every row carries
+the device kind it was measured on, so a cost model reads only its
+engine device's rows.  A CPU engine therefore prices with 1.0, as the
+reference does with its slack pinned, and a card's rows never size a query
+on another card.  The time calibration is the tuner's: the ratios come
+from the port's own tuning cache, filled by stopwatch measurements on the
+engine's device.
 
 Two lattice decisions are the port's own.  ``blocked`` is a candidate on
 a CUDA card (the reference offers it only on a TPU) and never on the CPU,
@@ -44,13 +52,17 @@ queue 1 item 11).
 
 from __future__ import annotations
 
+import json
+import logging
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.colorsets import binom
+from repro_torch.device import as_device_kind
 
 __all__ = [
     "CostModel",
@@ -60,15 +72,24 @@ __all__ = [
     "degradation_ladder",
     "RankedCandidate",
     "load_backend_calibration",
+    "load_fusion_slack",
+    "fusion_slack_factor",
+    "memory_model_row",
     "pick_chunk_size",
     "DEFAULT_MEMORY_BUDGET_BYTES",
     "MAX_CHUNK_SIZE",
     "LOCAL_COLUMN_BATCH",
     "CALIBRATION_CLAMP",
+    "SLACK_CLAMP",
+    "BENCH_ENV_VAR",
     "WORK_ELEMENT_US",
+    "WORK_ELEMENT_US_CUDA",
+    "work_element_us",
     "SWEEP_OVERHEAD_US",
     "LAUNCH_OVERHEAD_US",
 ]
+
+logger = logging.getLogger("repro_torch.plan")
 
 #: Default live-footprint budget for one chunk of colorings (bytes).  Sized
 #: for small graphs; on the card pass a budget sized to its memory.
@@ -82,6 +103,15 @@ MAX_CHUNK_SIZE = 64
 #: re-measure on the card, not a measurement of it.
 LOCAL_COLUMN_BATCH = 16
 
+#: Fusion-slack factors outside this band are treated as measurement noise
+#: (a wildly off row must not starve or blow the chunk picker).
+SLACK_CLAMP = (0.5, 2.0)
+
+#: Environment override for the file the fusion slack is read from
+#: (default: ``build/memory/BENCH_counting.json`` under the repository root,
+#: a git-ignored directory).
+BENCH_ENV_VAR = "REPRO_FUSION_SLACK_BENCH"
+
 #: Per-backend calibration ratios outside this band are treated as noise —
 #: the lattice is a *ranker*, a 100x ratio would let one bad probe freeze a
 #: backend out of every future candidate set.
@@ -89,7 +119,24 @@ CALIBRATION_CLAMP = (0.1, 10.0)
 
 #: Nominal cost of one gathered/FMA'd element in the per-stage work model
 #: (microseconds; absolute scale is arbitrary — the lattice only ranks).
+#: The reference's value, XLA:CPU's scale; the CPU lattice keeps it.
 WORK_ELEMENT_US = 1e-3
+
+#: The same on a CUDA card (``platform="cuda"``).  At XLA:CPU's scale the
+#: H100's measured/predicted ratios were 0.024-0.158 (``u5-1`` on rmat2k
+#: and rmat8k, PERF.md), mostly under :data:`CALIBRATION_CLAMP`'s floor, so
+#: every backend loaded the floor and the card's lattice kept its
+#: uncalibrated order.  A 32x cheaper element (about the ratios' geometric
+#: mean, ~0.03 ns) moves those ratios inside the clamp; the fixed launch and
+#: sweep costs stay.
+WORK_ELEMENT_US_CUDA = WORK_ELEMENT_US / 32
+
+
+def work_element_us(platform: Optional[str] = None) -> float:
+    """The work model's cost of one element on ``platform`` (``"cuda"`` or
+    anything else, priced as the reference's XLA:CPU scale)."""
+    return WORK_ELEMENT_US_CUDA if platform == "cuda" else WORK_ELEMENT_US
+
 
 #: Fixed cost per fused column-batch sweep call, and per kernel launch on
 #: ``blocked`` — what makes narrow column batches predictedly worse.
@@ -98,6 +145,115 @@ SWEEP_OVERHEAD_US = 12.0
 #: Fixed per-chunk-launch cost, amortized over the chunk's colorings —
 #: what makes tiny chunks predictedly worse.
 LAUNCH_OVERHEAD_US = 150.0
+
+
+#: memoized slack factors: (path, device kind) -> (file fingerprint, factor)
+_SLACK_CACHE: Dict[Tuple[str, str], Tuple[Optional[Tuple[int, int]], float]] = {}
+
+
+def _default_bench_path() -> str:
+    env = os.environ.get(BENCH_ENV_VAR, "").strip()
+    if env:
+        return env
+    # src/repro_torch/plan/cost.py -> repository root
+    root = os.path.dirname(
+        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    )
+    return os.path.join(root, "build", "memory", "BENCH_counting.json")
+
+
+def memory_model_row(name: str, analysis: Dict, device, applied_fusion_slack: float) -> Dict:
+    """One ``memory_model`` row as the reference's ``bench_counting`` writes
+    it (``name`` ending in ``/memory_model``, the
+    :meth:`~repro_torch.core.engine.CountingEngine.compiled_memory_analysis`
+    report of an engine that priced with ``applied_fusion_slack``), tagged
+    with the device kind it was measured on."""
+    actual, ratio = analysis["actual_temp_bytes"], analysis["ratio"]
+    return {
+        "name": name,
+        "device": as_device_kind(device),
+        "us_per_call": 0.0,
+        "derived": (
+            f"predicted_bytes={analysis['predicted_bytes']:.0f};"
+            f"actual_temp_bytes={'%.0f' % actual if actual else 'n/a'};"
+            f"predicted_over_actual={'%.3f' % ratio if ratio else 'n/a'};"
+            f"applied_fusion_slack={applied_fusion_slack:.4f}"
+        ),
+    }
+
+
+def _slack_ratios(bench, kind: str) -> List[float]:
+    """The raw analytic-model ratios of ``kind``'s ``memory_model`` rows."""
+    ratios = []
+    rows = bench.get("rows", []) if isinstance(bench, dict) else []
+    for row in rows:
+        if not isinstance(row, dict) or "memory_model" not in str(row.get("name", "")):
+            continue
+        if row.get("device") != kind:
+            continue
+        fields = {}
+        for part in str(row.get("derived", "")).split(";"):
+            if "=" in part:
+                name, _, val = part.partition("=")
+                fields[name] = val
+        try:
+            # a row written by a calibrated picker folds its slack into the
+            # prediction; multiplying it back out keeps the loader on the
+            # raw analytic ratio (re-measuring with calibration on does not
+            # double-correct)
+            ratio = float(fields["predicted_over_actual"])
+            ratio *= float(fields.get("applied_fusion_slack", 1.0))
+        except (KeyError, ValueError):
+            continue
+        if ratio > 0:  # rounded zeros would poison the mean
+            ratios.append(ratio)
+    return ratios
+
+
+def load_fusion_slack(path: Optional[str] = None, device=None) -> float:
+    """Empirical fusion-slack factor from the ``memory_model`` rows of one
+    device kind (``device``: a device kind string, or a device;
+    ``None``: the CUDA card).
+
+    The factor is the geometric mean of the rows' raw predicted/actual
+    ratios, clamped to :data:`SLACK_CLAMP`; ``< 1`` means the analytic
+    model under-predicts, so the picker inflates its byte estimates by
+    ``1 / slack``.  **Safe default**: 1.0 whenever the file or this
+    device's rows are missing or unparsable.  Rows without a device kind,
+    as the reference's are, never apply.  Memoized by (path, device kind)
+    and the file's modification time and size; applied calibration is
+    logged on the ``repro_torch.plan`` logger."""
+    resolved = path if path is not None else _default_bench_path()
+    kind = as_device_kind(device)
+    try:
+        st = os.stat(resolved)
+        fingerprint: Optional[Tuple[int, int]] = (st.st_mtime_ns, st.st_size)
+    except OSError:
+        fingerprint = None
+    hit = _SLACK_CACHE.get((resolved, kind))
+    if hit is not None and hit[0] == fingerprint:
+        return hit[1]
+    slack, ratios = 1.0, []
+    try:
+        with open(resolved) as fh:
+            ratios = _slack_ratios(json.load(fh), kind)
+    except (OSError, ValueError) as exc:
+        logger.debug("fusion-slack rows unavailable (%s); defaulting to 1.0", exc)
+    if ratios:
+        mean_log = sum(math.log(r) for r in ratios) / len(ratios)
+        slack = min(max(math.exp(mean_log), SLACK_CLAMP[0]), SLACK_CLAMP[1])
+        logger.info(
+            "fusion-slack calibration applied: factor=%.4f from %d memory_model rows "
+            "of %s (%s)", slack, len(ratios), kind, resolved,
+        )
+    _SLACK_CACHE[(resolved, kind)] = (fingerprint, slack)
+    return slack
+
+
+def fusion_slack_factor(device=None) -> float:
+    """The default file's slack for ``device``'s kind (what engines
+    constructed without an explicit ``fusion_slack`` use)."""
+    return load_fusion_slack(None, device)
 
 
 def load_backend_calibration(path: Optional[str] = None) -> Dict[str, float]:
@@ -178,15 +334,17 @@ def admission_estimate(
     store_dtype: torch.dtype = torch.float32,
     chunk_size: Optional[int] = None,
     memory_budget_bytes: int = DEFAULT_MEMORY_BUDGET_BYTES,
+    device=None,
 ) -> AdmissionEstimate:
     """Price a ``(graph, templates)`` query without building an engine: the
-    :class:`CostModel` resident formula, with the chunk picked against
+    :class:`CostModel` resident formula, calibrated for ``device`` as the
+    engine that would serve the query is, with the chunk picked against
     ``memory_budget_bytes`` as an engine construction would (unless
     ``chunk_size`` is given)."""
     from .ir import build_template_plan  # local: keeps import cycles out
 
     plan = build_template_plan(list(templates))
-    cm = CostModel(plan, graph, store_dtype)
+    cm = CostModel(plan, graph, store_dtype, device=device)
     resident = cm.resident_elements()
     per_coloring = cm.bytes_per_coloring(0, resident)
     chunk = int(chunk_size) if chunk_size else cm.pick_chunk_size(per_coloring, memory_budget_bytes)
@@ -240,15 +398,29 @@ class CostModel:
 
     All element counts are *store-dtype elements per coloring*; byte
     figures multiply by the store itemsize and divide by the fusion-slack
-    factor (fixed at 1.0).
+    factor.  ``fusion_slack=None`` reads the factor of ``device``'s kind
+    (:func:`fusion_slack_factor`); a model bound to no device
+    (``device=None``, as a plan-only caller's is) prices with 1.0.  A factor
+    outside :data:`SLACK_CLAMP` is rejected, not clamped.
     """
 
-    fusion_slack = 1.0
-
-    def __init__(self, plan, graph, store_dtype: torch.dtype = torch.float32):
+    def __init__(
+        self,
+        plan,
+        graph,
+        store_dtype: torch.dtype = torch.float32,
+        *,
+        fusion_slack: Optional[float] = None,
+        device=None,
+    ):
         self.plan = plan
         self.graph = graph
         self.itemsize = store_dtype.itemsize
+        if fusion_slack is None:
+            fusion_slack = 1.0 if device is None else fusion_slack_factor(device)
+        self.fusion_slack = float(fusion_slack)
+        if not SLACK_CLAMP[0] <= self.fusion_slack <= SLACK_CLAMP[1]:
+            raise ValueError(f"fusion_slack {self.fusion_slack} outside sane band {SLACK_CLAMP}")
 
     def pick_local_column_batch(self) -> int:
         """Fused-slice width for the single-device backends."""
@@ -405,8 +577,11 @@ class CostModel:
             return max(1, g.n**2 // _dense_work_advantage())
         raise ValueError(f"unknown work target {target!r}")
 
-    def group_cost_us(self, leader, backend: str, column_batch: Optional[int]) -> float:
-        """Raw (uncalibrated) predicted us for one exec group.
+    def group_cost_us(
+        self, leader, backend: str, column_batch: Optional[int], platform: Optional[str] = None
+    ) -> float:
+        """Raw (uncalibrated) predicted us for one exec group on
+        ``platform`` (:func:`work_element_us`).
 
         On the streamed backends one group is one passive column-batch
         sweep shared by every member stage: the backend's gather over
@@ -427,11 +602,12 @@ class CostModel:
             m = msub.size
             m_a = mplan.partition.subs[msub.active].size
             ema += self.graph.n * binom(mplan.k, m) * binom(m, m_a)
+        unit = work_element_us(platform)
         if backend == "blocked":
-            return (len(members) * gather + ema) * WORK_ELEMENT_US + len(members) * SWEEP_OVERHEAD_US
+            return (len(members) * gather + ema) * unit + len(members) * SWEEP_OVERHEAD_US
         cb = max(1, min(int(column_batch), passive_cols))
         sweeps = math.ceil(passive_cols / cb)
-        return (gather + ema) * WORK_ELEMENT_US + sweeps * SWEEP_OVERHEAD_US
+        return (gather + ema) * unit + sweeps * SWEEP_OVERHEAD_US
 
     def tree_group_leaders(self) -> list:
         """Exec-group leaders of *tree* stages — the addresses a mixed
@@ -448,6 +624,7 @@ class CostModel:
         *,
         chunk_size: int,
         calibration: Optional[Dict[str, float]] = None,
+        platform: Optional[str] = None,
     ) -> Tuple[float, float]:
         """``(calibrated_us, raw_us)`` per coloring for one
         :class:`~repro_torch.tune.config.TuningConfig`.
@@ -464,7 +641,7 @@ class CostModel:
         raw = calibrated = LAUNCH_OVERHEAD_US / max(1, int(chunk_size))
         for leader in self.tree_group_leaders():
             backend = bindings.get(leader, config.default_backend)
-            cost = self.group_cost_us(leader, backend, cb)
+            cost = self.group_cost_us(leader, backend, cb, platform)
             raw += cost
             calibrated += cost * calibration.get(backend, 1.0)
         return calibrated, raw
@@ -510,7 +687,7 @@ class CostModel:
                 return
             seen.add(config.key_fragment())
             calibrated, raw = self.predict_config_us(
-                config, chunk_size=config.chunk_size, calibration=calibration
+                config, chunk_size=config.chunk_size, calibration=calibration, platform=platform
             )
             candidates.append(RankedCandidate(config=config, predicted_us=calibrated, raw_us=raw))
 
@@ -547,7 +724,7 @@ class CostModel:
                             leader,
                             min(
                                 backends,
-                                key=lambda b: self.group_cost_us(leader, b, cb)
+                                key=lambda b: self.group_cost_us(leader, b, cb, platform)
                                 * calibration.get(b, 1.0),
                             ),
                         )

@@ -630,6 +630,7 @@ class CountingService:
                     query.templates,
                     store_dtype=DtypePolicy.resolve(self.dtype_policy).store_dtype,
                     memory_budget_bytes=self.memory_budget_bytes,
+                    device=self.device,
                 ).chunk_size
             self._ladders[key] = degradation_ladder(
                 base_chunk, column_batch, backend
@@ -757,6 +758,7 @@ class CountingService:
             store_dtype=DtypePolicy.resolve(self.dtype_policy).store_dtype,
             chunk_size=rung.chunk_size,
             memory_budget_bytes=self.memory_budget_bytes,
+            device=self.device,
         ).chunk_bytes
 
     def _next_event_at(self) -> Optional[float]:
@@ -862,6 +864,7 @@ class CountingService:
             store_dtype=DtypePolicy.resolve(self.dtype_policy).store_dtype,
             chunk_size=self.chunk_size,
             memory_budget_bytes=self.memory_budget_bytes,
+            device=self.device,
         )
         return est.chunk_bytes
 

@@ -23,34 +23,11 @@ import argparse
 import logging
 import sys
 
-from repro_torch.core.graph import erdos_renyi_graph, grid_graph, rmat_graph
+from repro_torch.core.graph import graph_from_spec
 from repro_torch.core.templates import get_template
 
 from .cache import default_cache_path
 from .search import DEFAULT_PROBES, DEFAULT_TOP_N, tune
-
-
-def _parse_graph(spec: str):
-    parts = spec.split(":")
-    kind = parts[0]
-    try:
-        if kind == "rmat":
-            n, e = int(parts[1]), int(parts[2])
-            seed = int(parts[3]) if len(parts) > 3 else 0
-            return rmat_graph(n, e, seed=seed), f"rmat(n={n}, edges={e}, seed={seed})"
-        if kind == "er":
-            n, e = int(parts[1]), int(parts[2])
-            seed = int(parts[3]) if len(parts) > 3 else 0
-            return (
-                erdos_renyi_graph(n, e, seed=seed),
-                f"erdos-renyi(n={n}, edges={e}, seed={seed})",
-            )
-        if kind == "grid":
-            r, c = int(parts[1]), int(parts[2])
-            return grid_graph(r, c), f"grid({r}x{c})"
-    except (IndexError, ValueError) as exc:
-        raise SystemExit(f"bad --graph spec {spec!r}: {exc}")
-    raise SystemExit(f"unknown graph kind {kind!r} (rmat | er | grid)")
 
 
 def main(argv=None) -> int:
@@ -112,7 +89,10 @@ def main(argv=None) -> int:
         level=logging.DEBUG if args.verbose else logging.WARNING,
         format="%(name)s %(levelname)s %(message)s",
     )
-    graph, graph_desc = _parse_graph(args.graph)
+    try:
+        graph, graph_desc = graph_from_spec(args.graph)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from exc
     templates = [get_template(name) for name in args.templates]
     print(f"tuning [{', '.join(t.name for t in templates)}] on {graph_desc}")
     result = tune(

@@ -48,6 +48,8 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.device import device_kind
+
 from .config import TUNING_SCHEMA_VERSION, TuningConfig
 
 __all__ = [
@@ -94,18 +96,6 @@ def canons_digest(canons) -> str:
     """Stable digest of a plan's template-set canon sequence (the schedule
     identity — see ``TemplatePlan.canons``)."""
     return hashlib.sha1(repr(tuple(map(tuple, canons))).encode()).hexdigest()
-
-
-def device_kind(device=None) -> str:
-    """The hardware key measurements are valid for: the CUDA device's name
-    (``torch.cuda.get_device_name``) for a card, ``"cpu"`` for the CPU.
-    ``device=None`` is the port's default device, the CUDA card."""
-    from repro_torch.device import resolve_device
-
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        return torch.cuda.get_device_name(dev)
-    return dev.type
 
 
 def _kind(device: DeviceLike) -> str:

@@ -161,7 +161,7 @@ def tune(
     templates = list(templates)
     plan = build_template_plan(templates)
     policy = DtypePolicy.resolve(dtype_policy)
-    cost = CostModel(plan, graph, policy.store_dtype)
+    cost = CostModel(plan, graph, policy.store_dtype, device=dev)
     calibration = load_backend_calibration(cache_path)
     lattice = cost.candidate_lattice(
         platform=platform, calibration=calibration, memory_budget_bytes=budget

@@ -15,7 +15,8 @@ on small graphs; two launches on the same inputs must give the same bits
 whose row does not fit shared memory) runs at u20's real widths and, under
 a small budget, at u12's.  Kernel B also runs at the widths of bag extends
 (a state of n = 8192 rows flattened to 49,152 and 98,304 columns), and
-refuses widths whose launch counts would pass its 32-bit ints; non-tree
+refuses widths whose launch counts would pass its 32-bit ints, as kernel
+A's wrapper checks its own at u18's and u20's sizes; non-tree
 templates run through the ``blocked`` engine on the card, and the threefry
 draws on the card equal the CPU's bit for bit.
 Tolerances: the plain versions sum with ``index_add_``, whose CUDA atomics
@@ -178,6 +179,32 @@ def test_spmm_ema_kernel_u20_wide_stages(card, k, m, m_a, bsz, part, monkeypatch
     passive beside 167,960 active columns; 1024-column passive tiles."""
     g, op = _hub_operand(card, part, monkeypatch)
     _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True)
+
+
+@pytest.mark.parametrize("tname,n", [("u18", 1 << 17), ("u20", 1 << 15)])
+def test_spmm_ema_int32_counts_at_u18_and_u20_sizes(card, tname, n):
+    """Kernel A's 32-bit launch counts at the full-width cells' sizes (R-MAT
+    at 8 sampled edges per vertex, one coloring): every wide stage fits,
+    and a launch whose counts would wrap is refused before it reaches the
+    card."""
+    from repro_torch.plan.ir import build_template_plan
+
+    op = prepare_operand(rmat_graph(n, 8 * n, seed=1), card)
+    plan = build_template_plan([get_template(tname)])
+    wide = 0
+    for cplan in plan.counting_plans:
+        for table in cplan.tables:
+            if table is None:
+                continue
+            c_p, c_a = binom(table.k, table.m - table.m_a), binom(table.k, table.m_a)
+            tables = prepare_stage_tables(table.idx_a, table.idx_p, c_p, c_a, card)
+            counts = ema_ops.check_int32_counts(op, 1, tables)
+            assert max(counts.values()) <= blocked_ops.INT32_MAX
+            wide += tables.wide
+            if tables.wide:  # the first count past its limit is named
+                with pytest.raises(ValueError, match="past the kernel's limit"):
+                    ema_ops.check_int32_counts(op, ema_ops.MAX_GRID_Y + 1, tables)
+    assert wide == {"u18": 2, "u20": 5}[tname]  # u20's (20, 7, 1) runs twice
 
 
 @pytest.mark.parametrize("part", range(len(_PARTITIONS)))

@@ -201,9 +201,10 @@ def test_estimate_describe_and_policy():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every module of the port imports with ``jax`` and ``repro`` blocked."""
+    """Every module of the port, and every example of the port
+    (``examples/torch/*.py``), imports with ``jax`` and ``repro`` blocked."""
     code = r"""
-import importlib, pkgutil, sys
+import glob, importlib, importlib.util, os, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -216,11 +217,16 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+examples = sorted(glob.glob(os.path.join(sys.argv[1], "examples", "torch", "*.py")))
+assert len(examples) >= 3, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location("example_" + os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "repro")]
 print(len(names))
 """
     env = dict(os.environ, PYTHONPATH=os.path.join(_REPO, "src"))
-    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+    out = subprocess.run([sys.executable, "-c", code, _REPO], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15

@@ -1,0 +1,98 @@
+"""The port's examples (``examples/torch/``) and the paper's config against
+the reference's, on the CPU.
+
+Each example runs in this process beside its reference counterpart
+(``examples/*.py``), both with their output captured: the text must be the
+same and every number in it within ``rtol=1e-5`` (the two frameworks sum
+fp32 in different orders).  The reference's fusion slack is pinned to 1.0,
+the port's on the CPU, so both pick the same chunks.  Running both in one
+process also gives ``ppin_treelets`` the same ``hash(name)`` graph seeds.
+"""
+
+import contextlib
+import dataclasses
+import importlib.util
+import io
+import os
+import re
+
+import numpy as np
+import pytest
+
+import repro.plan.cost as ref_cost
+from repro.configs.registry import get_arch as ref_get_arch
+from repro.core import estimator as ref_estimator
+from repro.core import graph as ref_graph
+from repro.core import templates as ref_templates
+
+from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.core import estimate_embeddings, get_template, rmat_graph
+from repro_torch.plan import cost
+
+RTOL = 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = ("quickstart", "ppin_treelets", "counting_service")
+_NUMBER = re.compile(r"-?\d+(?:\.\d+)?(?:e[+-]?\d+)?")
+
+
+@pytest.fixture(autouse=True)
+def _isolated(monkeypatch, tmp_path):
+    monkeypatch.setattr(ref_cost, "load_fusion_slack", lambda path=None: 1.0)
+    monkeypatch.setenv(cost.BENCH_ENV_VAR, str(tmp_path / "memory.json"))
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tuned.json"))
+    monkeypatch.delenv("REPRO_ENGINE_BACKEND", raising=False)
+    monkeypatch.delenv("REPRO_TUNE", raising=False)
+
+
+def _load(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _printed(fn, *args) -> list:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    return out.getvalue().splitlines()
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_prints_the_reference_estimates(name):
+    ref = _load(os.path.join(REPO, "examples", f"{name}.py"), f"ref_example_{name}")
+    port = _load(os.path.join(REPO, "examples", "torch", f"{name}.py"), f"torch_example_{name}")
+    want = _printed(ref.main)
+    got = _printed(port.main, ["--device", "cpu"])
+    assert len(got) == len(want) and len(want) >= 4
+    for g, w in zip(got, want):
+        assert _NUMBER.sub("#", g) == _NUMBER.sub("#", w), (g, w)
+        gv = [float(x) for x in _NUMBER.findall(g)]
+        wv = [float(x) for x in _NUMBER.findall(w)]
+        np.testing.assert_allclose(gv, wv, rtol=RTOL, err_msg=f"{g!r} vs {w!r}")
+
+
+def test_subgraph2vec_config_is_the_reference():
+    assert ARCHS["subgraph2vec"][0] == "subgraph"
+    family, module = get_arch("subgraph2vec")
+    ref_family, ref_module = ref_get_arch("subgraph2vec")
+    assert family == ref_family == "subgraph"
+    for attr in ("CONFIG", "SMOKE_CONFIG"):
+        cfg, ref_cfg = getattr(module, attr), getattr(ref_module, attr)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+        assert type(cfg).__name__ == type(ref_cfg).__name__ == "SubgraphConfig"
+
+
+def test_subgraph2vec_smoke_config_estimate_matches_reference():
+    """``SMOKE_CONFIG`` (u5-2 on rmat 512 / 2000) through both packages'
+    ``estimate_embeddings``, 8 colorings of seed 0."""
+    cfg = get_arch("subgraph2vec")[1].SMOKE_CONFIG
+    got = estimate_embeddings(rmat_graph(cfg.n_vertices, cfg.n_edges, seed=0),
+                              get_template(cfg.template), iterations=8, seed=0,
+                              dtype=cfg.dtype, device="cpu")
+    want = ref_estimator.estimate_embeddings(
+        ref_graph.rmat_graph(cfg.n_vertices, cfg.n_edges, seed=0),
+        ref_templates.get_template(cfg.template), iterations=8, seed=0, dtype=cfg.dtype)
+    assert got.iterations == want.iterations == 8
+    np.testing.assert_allclose(got.per_iteration, np.asarray(want.per_iteration), rtol=RTOL)
+    assert got.mean == pytest.approx(want.mean, rel=RTOL)

@@ -517,3 +517,38 @@ def test_spmm_blocked_refuses_counts_past_int32():
         blocked_ops.check_int32_counts(wide, 2048 * 128)
     counts = blocked_ops.check_int32_counts(op, 49_152)
     assert counts["light-range items (rows x column tiles)"] == blocked_ops.RANGE_ROWS * 384
+
+
+def test_spmm_ema_refuses_counts_past_int32():
+    """Kernel A's launch counts, checked on the host before a launch (the
+    card test checks them at u18's and u20's sizes): u20's widest passive
+    (184,756 columns) over 2^20 synthetic heavy segments fits one coloring
+    and not two; the colorings are the grid's y dimension; the heavy rows'
+    column index is B x C_p."""
+    g = rmat_graph(600, 4000, seed=3)
+    op = prepare_operand(g, "cpu")
+    widest = build_split_table(20, 11, 1)
+    tables = prepare_stage_tables(widest.idx_a, widest.idx_p, binom(20, 10), binom(20, 1), "cpu")
+    assert tables.wide
+    counts = ema_ops.check_int32_counts(op, 1, tables)
+    assert counts["split entries (outputs x splits)"] == 167_960 * 11
+    assert counts["passive column index (C_p + one tile)"] == 184_756 + WIDE_TILE_COLS
+    assert counts["light-range items (rows x column tiles)"] == 16 * (WIDE_TILE_COLS // 128)
+    assert counts["light-range outputs (rows x outputs)"] == 16 * 167_960
+    assert counts["light grid (ranges)"] == op.partition.n_ranges
+    many = torch.zeros(2**20, dtype=torch.int32)
+    segmented = dataclasses.replace(op, partition=dataclasses.replace(op.partition, seg_beg=many,
+                                                                      seg_end=many))
+    tiles = -(-184_756 // 128)
+    assert ema_ops.check_int32_counts(segmented, 1, tables)[
+        "heavy items (segments x column tiles)"] == 2**20 * tiles + 8
+    with pytest.raises(ValueError, match="heavy items"):
+        ema_ops.check_int32_counts(segmented, 2, tables)
+    with pytest.raises(ValueError, match="heavy column index"):
+        ema_ops.check_int32_counts(op, 11_624, tables)  # 184,756 x 11,624 > 2^31 - 1
+    small = build_split_table(5, 3, 1)
+    fits = prepare_stage_tables(small.idx_a, small.idx_p, binom(5, 2), binom(5, 1), "cpu")
+    assert not fits.wide
+    assert ema_ops.check_int32_counts(op, ema_ops.MAX_GRID_Y, fits)["grid y (colorings)"] == 65_535
+    with pytest.raises(ValueError, match="grid y"):
+        ema_ops.check_int32_counts(op, ema_ops.MAX_GRID_Y + 1, fits)

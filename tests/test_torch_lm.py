@@ -26,7 +26,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
 
-LM_ARCHS = sorted(ARCHS)
+LM_ARCHS = sorted(a for a, (family, _) in ARCHS.items() if family == "lm")
 CPU = torch.device("cpu")
 
 

@@ -42,6 +42,7 @@ from repro_torch.core import graph as port_graph
 from repro_torch.core.engine import CountingEngine, engine_cache_key
 from repro_torch.core.templates import get_template
 from repro_torch.exec.select import resolve_backend_config, tune_mode
+import repro_torch.plan.cost as port_cost
 from repro_torch.plan.cost import CostModel
 from repro_torch.plan.ir import build_template_plan
 from repro_torch.tune import (
@@ -251,7 +252,10 @@ def test_candidate_lattice_cpu_equals_reference(case):
 
 
 @pytest.mark.parametrize("case", list(LATTICE_CASES))
-def test_candidate_lattice_cuda_adds_one_blocked_candidate_per_budget_and_chunk(case):
+def test_candidate_lattice_cuda_adds_one_blocked_candidate_per_budget_and_chunk(case, monkeypatch):
+    # the card prices an element at WORK_ELEMENT_US_CUDA; the reference's
+    # formulas at that scale give the same uniform candidates
+    monkeypatch.setattr(ref_cost, "WORK_ELEMENT_US", port_cost.WORK_ELEMENT_US_CUDA)
     ref, port = _lattices(case, "tpu", "cuda", {})
 
     def uniform(lattice):
@@ -272,6 +276,65 @@ def test_candidate_lattice_cuda_adds_one_blocked_candidate_per_budget_and_chunk(
                    _graph("port", *LATTICE_CASES[case][0]), torch.float32)
     for leader in cm.tree_group_leaders():
         assert cm.group_cost_us(leader, "blocked", 4) == cm.group_cost_us(leader, "blocked", 64)
+
+
+#: ``u5-1`` at chunk 64 and a 48 GiB budget: the tuner's measured us per
+#: coloring on an NVIDIA H100 80GB HBM3 at 700 W, lowest and highest over
+#: PR 16's chip runs (PERF.md section 6), per graph and backend.
+CARD_MEASURED_US = {
+    "rmat2k": ((2048, 20_000, 1), {"blocked": (67.67, 114.33), "edges": (91.66, 127.61)}),
+    "rmat8k": ((8192, 80_000, 2), {"blocked": (86.77, 144.65), "edges": (110.80, 175.72)}),
+}
+
+
+def _card_chunk64(graph_spec):
+    cm = CostModel(build_template_plan([get_template("u5-1")]), _graph("port", *graph_spec),
+                   torch.float32)
+    lattice = cm.candidate_lattice(platform="cuda", calibration={}, memory_budget_bytes=48 << 30)
+    return cm, [c.config for c in lattice
+                if not c.config.mixed and c.config.chunk_size == 64]
+
+
+def test_work_model_scale_on_the_cpu_is_the_reference():
+    """The CPU prices an element as the reference does, so every group
+    cost and config price on ``"cpu"`` equals the reference's."""
+    assert port_cost.work_element_us("cpu") == ref_cost.WORK_ELEMENT_US
+    assert port_cost.work_element_us(None) == ref_cost.WORK_ELEMENT_US
+    (n, e, s), names, budget = LATTICE_CASES["rmat150-u5-1+u5-2"]
+    ref_cm = ref_cost.CostModel(ref_build_plan([ref_templates.get_template(t) for t in names]),
+                                _graph("ref", n, e, s), np.float32, fusion_slack=1.0)
+    cm = CostModel(build_template_plan([get_template(t) for t in names]),
+                   _graph("port", n, e, s), torch.float32)
+    for leader in cm.tree_group_leaders():
+        for backend in ("edges", "sell", "dense"):
+            assert cm.group_cost_us(leader, backend, 16, "cpu") == pytest.approx(
+                ref_cm.group_cost_us(leader, backend, 16), rel=1e-12)
+    cfg = TuningConfig("edges", column_batch=16, chunk_size=8)
+    got = cm.predict_config_us(cfg, chunk_size=8, platform="cpu")
+    want = ref_cm.predict_config_us(ref_tune.TuningConfig("edges", column_batch=16, chunk_size=8),
+                                    chunk_size=8)
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("graph_name", list(CARD_MEASURED_US))
+def test_work_model_scale_on_the_card_puts_measured_ratios_inside_the_clamp(graph_name):
+    """The H100's measured us per coloring over the card's raw prediction
+    lie inside ``CALIBRATION_CLAMP``, so the loader applies them unclamped;
+    at the reference's XLA:CPU scale the rmat8k ratios fall under its floor,
+    which is what froze the card's lattice in its uncalibrated order."""
+    spec, measured = CARD_MEASURED_US[graph_name]
+    cm, configs = _card_chunk64(spec)
+    lo, hi = port_cost.CALIBRATION_CLAMP
+    for cfg in configs:
+        if cfg.backend_name not in measured:
+            continue
+        _, raw_card = cm.predict_config_us(cfg, chunk_size=64, platform="cuda")
+        _, raw_cpu = cm.predict_config_us(cfg, chunk_size=64, platform="cpu")
+        assert raw_card < raw_cpu
+        for us in measured[cfg.backend_name]:
+            assert lo < us / raw_card < hi, (cfg, us, raw_card)
+            if graph_name == "rmat8k":
+                assert us / raw_cpu < lo
 
 
 # ---------------------------------------------------------------------------

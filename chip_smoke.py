@@ -135,6 +135,25 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``REPRO_FUSION_SLACK_BENCH`` names for the whole run (no earlier phase
    finds rows there), then the fusion slack ``load_fusion_slack`` derives
    from them and the chunk each engine would pick at that slack.
+11. The mesh backend (``[mesh]``): one rank per card over NCCL
+   (``torch.cuda.device_count()`` ranks, spawned through
+   ``repro_torch.testing.ranks.run_ranks``; one on a one-card machine),
+   each building ``CountingEngine(graph, [u12], mesh=<the group>)`` on phase
+   4's graph at the 48 GiB budget: streamed eMA, the cost model's column
+   batch and the shard model's chunk, priced without the ``[memory]`` rows
+   (those were measured on ``blocked`` engines).  One chunk of
+   ``split(prng_key(0), chunk)`` goes through ``count_keys`` twice (the
+   repeat must be bitwise equal, and every rank must hold the same totals),
+   then ``compiled_memory_analysis`` measures one chunk per shard.  Gate:
+   totals within ``TOTALS_RTOL`` of a ``blocked`` engine on the same keys.
+   Prints ``describe()["comm"]``, the per-shard predicted over measured
+   bytes, and seconds per coloring beside ``blocked``'s.  No kernel of the
+   port runs on this path: the reference's mesh path reaches no Pallas
+   kernel, and its collectives and PyTorch tensor ops take their place.
+   Several ranks need several cards: NCCL takes one rank per card, and gloo
+   aborts on CUDA tensors in the card's torch build
+   (``scripts/torch_mesh_probe.py``), so on one card the ring between ranks
+   is held only by the CPU tests (``tests/test_torch_mesh.py``).
 
 The second-to-last line of output is the ``kernels`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
@@ -264,6 +283,9 @@ FLASH_ATOL = 1e-4
 #: fp32 forward, flash vs sdpa: max |diff| over max |logits| (measured
 #: 3.5e-6 on the H100, so the gate leaves a margin of about 14x).
 LOGITS_RTOL = 5e-5
+
+# [mesh]: the whole spawned group's wall-clock limit, and each collective's
+MESH_TIMEOUT_S = 600.0
 
 
 def log(*args) -> None:
@@ -1764,6 +1786,126 @@ def memory_path(records, device, budget) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the mesh backend
+# ---------------------------------------------------------------------------
+
+
+def mesh_rank(rank, world, graph, template_name, budget, device_type) -> dict:
+    """One rank of ``[mesh]`` (runs in a process ``run_ranks`` spawned)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
+    from repro_torch.core.templates import get_template
+
+    kwargs = {} if device_type == "cuda" else {"device": "cpu"}
+    t0 = time.perf_counter()
+    engine = CountingEngine(graph, [get_template(template_name)], mesh=dist.group.WORLD,
+                            memory_budget_bytes=budget, **kwargs)
+    build_s = time.perf_counter() - t0
+    if engine.backend != "mesh":
+        raise AssertionError(f"mesh= resolved to {engine.backend!r}")
+    keys = split(prng_key(0, engine.device), engine.chunk_size)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        est = engine.count_keys(keys)  # returns on the host: synchronised
+        runs.append((time.perf_counter() - t0, est))
+    if not np.array_equal(runs[0][1], runs[1][1]):
+        raise AssertionError(f"[mesh] rank {rank}: a repeat differs: "
+                             f"{runs[0][1].tolist()} vs {runs[1][1].tolist()}")
+    if not np.all(np.isfinite(runs[0][1])):
+        raise AssertionError(f"[mesh] rank {rank}: totals not finite: {runs[0][1].tolist()}")
+    d = engine.describe()
+    return {
+        "rank": rank,
+        "world": world,
+        "group_backend": dist.get_backend(),
+        "device": str(engine.device),
+        "chunk_size": engine.chunk_size,
+        "column_batch": d["column_batch"],
+        "comm": d["comm"],
+        "rows_per_shard": engine.backend_impl.sharded.rows_per_shard,
+        "edges_per_shard": engine.backend_impl.sharded.edges_per_shard,
+        "engine_build_s": build_s,
+        "seconds_per_coloring": [t / keys.shape[0] for t, _ in runs],
+        "estimates": runs[0][1],
+        "predicted_transient_bytes": d["memory"]["predicted_transient_bytes"],
+        "predicted_resident_bytes": d["memory"]["predicted_resident_bytes"],
+        "fusion_slack": d["memory"]["fusion_slack"],
+        "memory": engine.compiled_memory_analysis(),
+    }
+
+
+def mesh_path(graph, device, budget) -> dict:
+    """Phase 11: the mesh engine on every card (or 2 gloo ranks on the CPU,
+    for rehearsals) against a ``blocked`` engine in this process."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
+    from repro_torch.core.templates import get_template
+    from repro_torch.plan.cost import BENCH_ENV_VAR
+    from repro_torch.testing.ranks import run_ranks
+
+    if device.type == "cuda":
+        world, backend = torch.cuda.device_count(), "nccl"
+        torch.cuda.empty_cache()
+    else:
+        world, backend = 2, "gloo"
+    # the ranks price with the uncalibrated model: the [memory] rows were
+    # measured on blocked engines (the ranks inherit this environment)
+    slack_file = os.environ.get(BENCH_ENV_VAR)
+    empty_dir = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    os.environ[BENCH_ENV_VAR] = os.path.join(empty_dir, "BENCH_counting.json")
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(mesh_rank, world, args=(graph, TEMPLATE, budget, device.type),
+                          backend=backend, timeout_s=MESH_TIMEOUT_S)
+    finally:
+        shutil.rmtree(empty_dir, ignore_errors=True)
+        if slack_file is None:
+            os.environ.pop(BENCH_ENV_VAR)
+        else:
+            os.environ[BENCH_ENV_VAR] = slack_file
+    group_s = time.perf_counter() - t0
+    est = ranks[0]["estimates"]
+    for r in ranks[1:]:
+        if not np.array_equal(r["estimates"], est):
+            raise AssertionError(f"[mesh] rank {r['rank']} totals differ from rank 0's")
+
+    kwargs = {} if device.type == "cuda" else {"device": device}
+    blocked = CountingEngine(graph, [get_template(TEMPLATE)], backend="blocked",
+                             memory_budget_bytes=budget, **kwargs)
+    keys = split(prng_key(0, device), ranks[0]["chunk_size"])
+    blocked.count_keys(keys)  # warm: kernels loaded, partition built
+    t0 = time.perf_counter()
+    want = blocked.count_keys(keys)
+    blocked_s = time.perf_counter() - t0
+    del blocked
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if not np.allclose(est, want, rtol=TOTALS_RTOL, atol=0.0):
+        raise AssertionError(f"[mesh] {est.tolist()} vs blocked {want.tolist()} "
+                             f"beyond rtol={TOTALS_RTOL}")
+    out = {
+        "template": TEMPLATE,
+        "world": world,
+        "group_backend": backend,
+        "group_wall_s": group_s,
+        "blocked_seconds_per_coloring": blocked_s / keys.shape[0],
+        "max_rel_diff_vs_blocked": float(np.max(np.abs(est - want) / np.abs(want))),
+        "estimates": est[:, 0].tolist(),
+        "ranks": [{k: v for k, v in r.items() if k != "estimates"} for r in ranks],
+    }
+    log(f"[mesh] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernel_record(name, path, source, replaces, launches, rows, timed=None) -> dict:
@@ -1893,8 +2035,10 @@ def run(args, device) -> int:
                                MEMORY_BUDGET_BYTES),
         *wide_memory,
     ], device, MEMORY_BUDGET_BYTES)
-    del graph, motif_graph
     log(f"[time] wide and memory phases done at {time.perf_counter() - t_start:.1f} s")
+    mesh = mesh_path(graph, device, MEMORY_BUDGET_BYTES)
+    del graph, motif_graph
+    log(f"[time] mesh phase done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = [
         # times: the u12 stages of the tree path at 2 colorings; the wide
@@ -1945,7 +2089,7 @@ def run(args, device) -> int:
              "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
-             "wide": wide, "memory": memory, "kernels": kernels},
+             "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

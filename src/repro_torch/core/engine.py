@@ -20,8 +20,15 @@ them (:mod:`repro_torch.core.prng`): :meth:`CountingEngine.estimate`,
 the same seed or keys.  :meth:`CountingEngine.count_colorings` takes
 explicit ``(iters, n)`` colorings.  :func:`engine_cache_key` is the
 engine's identity, which the counting service caches warm engines under.
-The fault-injection seams (``engine_build``, ``launch``) are the
-reference's (:mod:`repro_torch.testing.faults`).
+The fault-injection seams (``engine_build``, ``launch``, and on the mesh
+backend ``collective``) are the reference's
+(:mod:`repro_torch.testing.faults`).
+
+With ``mesh=`` (a 1-D ``DeviceMesh`` or a ``ProcessGroup`` the caller
+initialised) the engine is one rank of the ``mesh`` backend
+(:mod:`repro_torch.exec.mesh`): every rank builds it with the same
+arguments and calls it with the same keys, and every rank gets the same
+totals.  Its memory model is per shard.
 """
 
 from __future__ import annotations
@@ -194,19 +201,27 @@ class CountingEngine:
       device: ``None`` (the CUDA card; raises without one), ``"cuda"``,
         ``"cuda:N"`` or ``"cpu"``.
       backend: ``auto`` | ``edges`` | ``ell`` | ``sell`` | ``dense`` |
-        ``blocked`` | ``mixed``.  ``auto`` resolves ``REPRO_ENGINE_BACKEND``,
-        then a tuned config (``tuning=``, or the tuning cache's entry for
-        this graph, template set and device kind under ``REPRO_TUNE``), then
-        the graph-statistics heuristic (``blocked`` on a card for large
+        ``blocked`` | ``mixed`` | ``mesh``.  ``auto`` resolves to ``mesh``
+        when ``mesh=`` is given, else ``REPRO_ENGINE_BACKEND``, then a tuned
+        config (``tuning=``, or the tuning cache's entry for this graph,
+        template set and device kind under ``REPRO_TUNE``), then the
+        graph-statistics heuristic (``blocked`` on a card for large
         graphs).  ``mixed`` requires ``tuning=``.  Ignored when ``spmm_fn``
         is given.
       spmm_fn: optional ``(n, C) -> (n, C)`` neighbor-sum function (the
         ``custom`` backend).
       dtype_policy: ``fp32`` | ``bf16`` | a :class:`DtypePolicy` | a dtype.
-      memory_budget_bytes: live-footprint budget steering the chunk picker.
+      memory_budget_bytes: live-footprint budget steering the chunk picker
+        (per device; on the mesh backend the model is per shard).
       chunk_size: explicit colorings-per-chunk override (skips the picker).
       column_batch: passive columns per fused slice of the streamed
-        backends; ``None``: the cost model's pick.
+        backends (on ``mesh``, per collective); ``None``: the cost model's
+        pick (``min(16, ...)`` locally, ``min(128, ...)`` on ``mesh``).
+      mesh / ema_mode / gather_dtype / balance_degrees / mesh_comm: the
+        mesh backend's knobs (:class:`repro_torch.exec.mesh.MeshBackend`);
+        ``mesh_comm`` forces ``blocking`` | ``pipelined`` collectives,
+        ``None`` lets ``REPRO_MESH_COMM`` or the cost model decide (a tuned
+        config may carry it).
       tuning: optional :class:`repro_torch.tune.config.TuningConfig` (what
         ``python -m repro_torch.tune`` / ``CountingService.tune`` produce):
         binds per-group backends and supplies ``column_batch``,
@@ -228,6 +243,11 @@ class CountingEngine:
         chunk_size: Optional[int] = None,
         column_batch: Optional[int] = None,
         tuning=None,
+        mesh=None,
+        ema_mode: str = "streamed",
+        gather_dtype: Optional[torch.dtype] = None,
+        balance_degrees: bool = True,
+        mesh_comm: Optional[str] = None,
     ):
         if isinstance(templates, Template):
             templates = [templates]
@@ -254,6 +274,8 @@ class CountingEngine:
         self._tuning = None
         if spmm_fn is not None:
             name, source, reason = "custom", "custom", "caller-supplied spmm_fn"
+        elif backend == "auto" and mesh is not None:
+            name, source, reason = "mesh", "mesh", "mesh= given"
         else:
             if backend != "auto" and backend not in ENGINE_BACKENDS:
                 raise ValueError(f"unknown backend {backend!r} (one of {ENGINE_BACKENDS})")
@@ -271,6 +293,8 @@ class CountingEngine:
                     chunk_size = cfg.chunk_size
                 if memory_budget_bytes is None:
                     memory_budget_bytes = cfg.memory_budget_bytes
+                if mesh_comm is None:
+                    mesh_comm = cfg.mesh_comm
         self.backend = name
         self.backend_source = source
         self.backend_reason = reason
@@ -297,7 +321,9 @@ class CountingEngine:
 
         # --- layer 3: bind the plan to the device.
         self.backend_impl: EngineBackend = make_backend(
-            self, spmm_fn=spmm_fn, tuning=self._tuning
+            self, spmm_fn=spmm_fn, tuning=self._tuning, mesh=mesh,
+            column_batch=column_batch, ema_mode=ema_mode, gather_dtype=gather_dtype,
+            balance_degrees=balance_degrees, mesh_comm=mesh_comm,
         )
 
         self._chunk_explicit = bool(chunk_size)
@@ -348,7 +374,8 @@ class CountingEngine:
         arguments.  A failing chunk raises.  On the CPU, which keeps no
         allocation statistics, ``actual_temp_bytes`` and ``ratio`` are
         ``None``, as the reference's are on a backend without
-        ``memory_analysis()``.
+        ``memory_analysis()``.  On the mesh backend the figures are per
+        shard, and every rank must call this together (it runs a chunk).
 
         Returns ``{"predicted_bytes", "actual_temp_bytes", "ratio"}``
         (``ratio`` = predicted / actual)."""
@@ -409,8 +436,13 @@ class CountingEngine:
                 "store": _dtype_name(self.policy.store_dtype),
                 "accum": _dtype_name(self.policy.accum_dtype),
             },
-            "column_batch": self.column_batch,
+            # the mesh backend aggregates at its own all-gather batch width
+            "column_batch": getattr(self.backend_impl, "column_batch", self.column_batch),
             "chunk_size": self.chunk_size,
+            # the mesh backend's resolved collective scheme and per-stage
+            # comm schedule (None on the local backends)
+            "comm": (self.backend_impl.describe_comm()
+                     if hasattr(self.backend_impl, "describe_comm") else None),
             "plan": self.plan_ir.describe(),
             "memory": {
                 "budget_bytes": self.memory_budget_bytes,
@@ -469,7 +501,9 @@ class CountingEngine:
         The serving path: callers stream iterations through repeated calls.
         A short increment is padded with its last key up to ``chunk_size``,
         as in the reference, so every launch has the chunk's shape whatever
-        the increment.  The fault seams fire here, at the launch boundary.
+        the increment.  The fault seams fire here, at the launch boundary:
+        ``launch`` on every backend, ``collective`` on the backends that
+        declare it (``EngineBackend.fault_sites``).
         """
         keys = as_keys(keys, self.device)
         m = int(keys.shape[0])
@@ -481,6 +515,12 @@ class CountingEngine:
                 "split it (count_keys handles multi-chunk runs)"
             )
         _faults.maybe_fail("launch", ctx=f"backend={self.backend}")
+        if "collective" in self.backend_impl.fault_sites:
+            # the pipelined mesh path crosses the collective seam once per
+            # ring step (blocking: once per launch), so a seeded fault plan
+            # sees every dispatch
+            for step in range(self.backend_impl.collective_dispatches):
+                _faults.maybe_fail("collective", ctx=f"backend={self.backend} step={step}")
         pad = self.chunk_size - m
         if pad:
             keys = torch.cat([keys, keys[-1:].expand(pad, 2)])

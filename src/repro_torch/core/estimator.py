@@ -74,6 +74,10 @@ def estimate_embeddings(
     memory_budget_bytes: Optional[int] = None,
     device=None,
     spmm_fn: Optional[Callable] = None,
+    mesh=None,
+    column_batch: Optional[int] = None,
+    gather_dtype: Optional[torch.dtype] = None,
+    balance_degrees: bool = True,
     epsilon: Optional[float] = None,
     delta: Optional[float] = None,
     max_iterations: Optional[int] = None,
@@ -88,7 +92,17 @@ def estimate_embeddings(
     once the CI halfwidth (``bound``: ``"normal"`` or ``"bernstein"``) is
     within ``epsilon * |mean|`` at confidence ``1 - delta``, or at the
     budget ``max_iterations`` (else ``iterations``, else 1024).
+
+    With ``mesh=`` (a 1-D ``DeviceMesh`` or ``ProcessGroup``) the run is one
+    rank of the engine's ``mesh`` backend (``backend="auto"`` resolves to
+    it); every rank calls this with the same arguments and gets the same
+    estimate.  ``column_batch``, ``gather_dtype`` and ``balance_degrees``
+    are the mesh backend's knobs (:class:`repro_torch.exec.mesh.MeshBackend`).
     """
+    kwargs = {}
+    if mesh is not None:
+        kwargs.update(mesh=mesh, column_batch=column_batch, gather_dtype=gather_dtype,
+                      balance_degrees=balance_degrees)
     engine = CountingEngine(
         graph,
         [template],
@@ -98,6 +112,7 @@ def estimate_embeddings(
         dtype_policy=dtype,
         chunk_size=chunk_size,
         memory_budget_bytes=memory_budget_bytes,
+        **kwargs,
     )
     if epsilon is not None or delta is not None:
         # lazy import: the serving layer sits above core and imports it

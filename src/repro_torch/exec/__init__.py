@@ -30,6 +30,7 @@ from .local import (
     MixedBackend,
     SellBackend,
 )
+from .mesh import BagPlanUnsupported, MeshBackend
 from .select import consult_tuning, resolve_backend_config, select_backend, tune_mode
 
 __all__ = [
@@ -47,6 +48,8 @@ __all__ = [
     "BlockedEllBackend",
     "CustomBackend",
     "MixedBackend",
+    "MeshBackend",
+    "BagPlanUnsupported",
     "SELL_GROUP_SIZE",
     "resolve_backend_config",
     "select_backend",

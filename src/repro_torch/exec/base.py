@@ -40,12 +40,15 @@ __all__ = [
 
 
 def make_backend(
-    engine, spmm_fn: Optional[Callable] = None, tuning=None
+    engine, spmm_fn: Optional[Callable] = None, tuning=None, **mesh_kwargs
 ) -> "EngineBackend":
     """Bind ``engine``'s resolved backend name to an implementation
     (``spmm_fn``: the ``custom`` backend's neighbor sum; ``tuning``: the
-    ``mixed`` backend's :class:`~repro_torch.tune.config.TuningConfig`)."""
+    ``mixed`` backend's :class:`~repro_torch.tune.config.TuningConfig`;
+    ``mesh_kwargs``: the ``mesh`` backend's ``mesh``, ``column_batch``,
+    ``ema_mode``, ``gather_dtype``, ``balance_degrees`` and ``mesh_comm``)."""
     from .local import LOCAL_BACKEND_CLASSES, CustomBackend, MixedBackend
+    from .mesh import MeshBackend
 
     name = engine.backend
     if name == "custom":
@@ -55,8 +58,14 @@ def make_backend(
     if name in LOCAL_BACKEND_CLASSES:
         return LOCAL_BACKEND_CLASSES[name](engine)
     if name == "mesh":
-        raise NotImplementedError(
-            "the mesh backend is not ported yet (ROADMAP queue 1 item 11)"
+        return MeshBackend(
+            engine,
+            mesh_kwargs.get("mesh"),
+            column_batch=mesh_kwargs.get("column_batch"),
+            ema_mode=mesh_kwargs.get("ema_mode", "streamed"),
+            gather_dtype=mesh_kwargs.get("gather_dtype"),
+            balance_degrees=mesh_kwargs.get("balance_degrees", True),
+            comm=mesh_kwargs.get("mesh_comm"),
         )
     raise ValueError(f"unknown backend {name!r}")
 
@@ -198,6 +207,11 @@ class EngineBackend:
     """
 
     name: str = "abstract"
+
+    #: Which fault-injection sites apply at this backend's launch boundary
+    #: (checked by ``CountingEngine.count_keys_chunk``); the mesh backend
+    #: adds ``"collective"`` for its collective dispatch.
+    fault_sites: Tuple[str, ...] = ("launch",)
 
     def __init__(self, engine):
         self.engine = engine

@@ -25,10 +25,13 @@ __all__ = [
     "resolve_backend_config",
     "consult_tuning",
     "tune_mode",
+    "mesh_comm_mode",
     "ENGINE_BACKENDS",
     "BACKEND_ENV_VAR",
     "TUNE_MODE_ENV_VAR",
     "TUNE_MODES",
+    "MESH_COMM_ENV_VAR",
+    "MESH_COMM_MODES",
     "DENSE_MAX_VERTICES",
     "ELL_PAD_FACTOR",
     "BLOCKED_MIN_VERTICES",
@@ -62,6 +65,13 @@ DENSE_WORK_ADVANTAGE = 16
 TUNE_MODE_ENV_VAR = "REPRO_TUNE"
 
 TUNE_MODES = ("off", "cached", "full")
+
+#: Environment override forcing the mesh backend's collective scheme:
+#: ``blocking`` (one all-gather per column batch) or ``pipelined`` (the
+#: double-buffered ring).  Unset = the cost model's per-stage decision.
+MESH_COMM_ENV_VAR = "REPRO_MESH_COMM"
+
+MESH_COMM_MODES = ("blocking", "pipelined")
 
 ENGINE_BACKENDS = (
     "edges", "ell", "sell", "dense", "blocked", "mixed", "mesh", "custom"
@@ -121,6 +131,27 @@ def tune_mode() -> str:
 
 
 _BAD_TUNE_MODES_WARNED: set = set()
+
+
+def mesh_comm_mode() -> Optional[str]:
+    """The validated ``REPRO_MESH_COMM`` override, or ``None`` (let the cost
+    model's per-stage ``comm_schedule`` decide).  An unrecognised value
+    warns once and behaves as unset."""
+    raw = os.environ.get(MESH_COMM_ENV_VAR, "").strip().lower()
+    if not raw:
+        return None
+    if raw in MESH_COMM_MODES:
+        return raw
+    if raw not in _BAD_MESH_COMM_WARNED:
+        _BAD_MESH_COMM_WARNED.add(raw)
+        logger.warning(
+            "%s=%r is not one of %s — ignoring the override",
+            MESH_COMM_ENV_VAR, raw, "|".join(MESH_COMM_MODES),
+        )
+    return None
+
+
+_BAD_MESH_COMM_WARNED: set = set()
 
 
 def consult_tuning(graph, canons, *, device, signature=None, path=None):

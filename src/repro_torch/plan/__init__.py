@@ -1,6 +1,6 @@
-"""Plan layer of the port: the template-set IR and the cost model (the
-reference's ``repro.plan`` minus the mesh comm model, which waits for the
-mesh slice).  ``python -m repro_torch.plan`` is the plan inspector."""
+"""Plan layer of the port: the template-set IR and the cost model with the
+mesh comm model (the reference's ``repro.plan``).  ``python -m
+repro_torch.plan`` is the plan inspector."""
 
 # Import-cycle anchor (see repro_torch.exec): core.engine imports this
 # package, so entering here first finishes loading the core submodules.
@@ -12,6 +12,8 @@ from .cost import (
     DEFAULT_MEMORY_BUDGET_BYTES,
     LOCAL_COLUMN_BATCH,
     MAX_CHUNK_SIZE,
+    MESH_COLUMN_BATCH,
+    CommSchedule,
     CostModel,
     RankedCandidate,
     fusion_slack_factor,
@@ -24,6 +26,8 @@ from .ir import PlanStage, TemplatePlan, build_template_plan, template_set_canon
 __all__ = [
     "CostModel",
     "RankedCandidate",
+    "CommSchedule",
+    "MESH_COLUMN_BATCH",
     "load_backend_calibration",
     "load_fusion_slack",
     "fusion_slack_factor",

@@ -23,9 +23,10 @@ decomposition width — alongside the same liveness and cost verdicts.
 Templates of different vertex counts cannot share colorings, so the CLI
 groups them by ``k`` and prints one plan (and one cost verdict) per group.
 
-Graph specs: ``rmat:N:E[:SEED]``, ``er:N:E[:SEED]``, ``grid:R:C``.  The
-reference's ``--mesh-shards`` comm-model verdict waits for the mesh slice
-(ROADMAP queue 1 item 11) and raises.
+Graph specs: ``rmat:N:E[:SEED]``, ``er:N:E[:SEED]``, ``grid:R:C``.
+``--mesh-shards D`` adds the mesh comm model's per-stage verdict (blocking
+vs the pipelined ring, wire bytes, overlap) for a D-rank 1-D group, priced
+on the engine's device type; it needs no process group.
 """
 
 from __future__ import annotations
@@ -170,6 +171,31 @@ def _print_cost(graph, gdesc, group, args) -> None:
         f"{_fmt_bytes(mem['budget_bytes'])} budget -> predicted peak "
         f"{_fmt_bytes(eng.predicted_peak_bytes())}"
     )
+    if args.mesh_shards is not None:
+        _print_comm_schedule(eng.cost, args.mesh_shards, args.column_batch)
+
+
+def _print_comm_schedule(cost, n_shards: int, column_batch) -> None:
+    """The comm model's per-stage verdict for a 1-D ``n_shards`` group: the
+    :class:`~repro_torch.plan.cost.CommSchedule` the mesh backend resolves
+    (absent an override) and ``describe()['comm']`` reports."""
+    from .cost import mesh_link_bytes_per_us
+
+    cb = column_batch or cost.pick_mesh_column_batch()
+    schedules = cost.mesh_comm_schedules(n_shards, column_batch=cb)
+    print(
+        f"\nMesh comm schedule ({n_shards} shards, column_batch={cb}, "
+        f"link {mesh_link_bytes_per_us():.0f} B/us):"
+    )
+    print("  stage      mode       wire        comm_us  compute_us  overlap  reason")
+    for leader, s in sorted(schedules.items()):
+        d = s.describe()
+        print(
+            f"  {leader[0]}:{leader[1]:<7d} {d['mode']:10s} "
+            f"{_fmt_bytes(d['wire_bytes']):>10s}  {d['comm_us']:7.1f}  "
+            f"{d['compute_us']:10.1f}  {d['overlap_efficiency']:7.2f}  "
+            f"{d['reason']}"
+        )
 
 
 def main(argv=None) -> int:
@@ -206,13 +232,13 @@ def main(argv=None) -> int:
         type=int,
         default=None,
         metavar="D",
-        help="the mesh comm model's per-stage verdict (not ported yet)",
+        help="print the mesh comm model's per-stage verdict (blocking vs "
+        "pipelined ring, wire bytes, overlap efficiency) for a D-shard "
+        "1-D mesh — needs --graph",
     )
     args = ap.parse_args(argv)
-    if args.mesh_shards is not None:
-        raise NotImplementedError(
-            "--mesh-shards: the mesh comm model is not ported yet (ROADMAP queue 1 item 11)"
-        )
+    if args.mesh_shards is not None and not args.graph:
+        ap.error("--mesh-shards needs --graph (the comm model prices real edges)")
 
     names = list(args.templates) + list(args.extra_templates)
     if not names:

@@ -1,13 +1,18 @@
 """The cost model: resource predictions for the single-device targets.
 
-The port of the local half of ``repro.plan.cost``.  One :class:`CostModel`
-per (plan, graph, dtype) owns:
+The port of ``repro.plan.cost``.  One :class:`CostModel` per (plan, graph,
+dtype) owns:
 
 * the **resident** figure — ``n * TemplatePlan.peak_columns`` live M-matrix
   elements per coloring;
 * the **transient** formulas per target — one fused ``column_batch``-wide
   slice of the backend's gather scratch (edge messages, padded rows, SELL
   groups), or one stage's staging width on the ``blocked`` target;
+* the **mesh** target, per shard: the all-gather buffer and edge messages
+  of one column batch, the padded resident state, and the **comm model**
+  (:class:`CommSchedule`, :meth:`CostModel.comm_schedule`): blocking
+  all-gather or the pipelined ring, per exec group, from the wire time the
+  ring can hide under the stage's per-shard compute;
 * **column-batch picking** and **chunk picking** — the largest coloring
   chunk whose live footprint fits the memory budget;
 * the serving layer's prices: :func:`admission_estimate` (a query's
@@ -45,9 +50,14 @@ where both kernels run their plain versions, a correctness path.  And on
 ``blocked`` the lattice prices the work the port runs: neither kernel
 reads ``column_batch`` and an exec group runs as a per-stage loop, so each
 member stage pays its own gather and one launch, and the lattice holds one
-``blocked`` candidate per (budget, chunk) with ``column_batch=None``.  The
-mesh comm model and the mesh candidates wait for the mesh slice (ROADMAP
-queue 1 item 11).
+``blocked`` candidate per (budget, chunk) with ``column_batch=None``.
+
+The comm model's link rate is the reference's nominal
+:data:`MESH_LINK_BYTES_PER_US` (4,000 B/us) and its environment knob
+:data:`MESH_LINK_ENV_VAR`; no card's link rate has been measured for it.
+Its compute half prices an element at :func:`work_element_us` of the cost
+model's device type, as the local pricing does, so on the CPU every mesh
+figure equals the reference's.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ __all__ = [
     "LadderRung",
     "degradation_ladder",
     "RankedCandidate",
+    "CommSchedule",
     "load_backend_calibration",
     "load_fusion_slack",
     "fusion_slack_factor",
@@ -79,6 +90,11 @@ __all__ = [
     "DEFAULT_MEMORY_BUDGET_BYTES",
     "MAX_CHUNK_SIZE",
     "LOCAL_COLUMN_BATCH",
+    "MESH_COLUMN_BATCH",
+    "MESH_LINK_BYTES_PER_US",
+    "MESH_LINK_ENV_VAR",
+    "RING_STEP_OVERHEAD_US",
+    "mesh_link_bytes_per_us",
     "CALIBRATION_CLAMP",
     "SLACK_CLAMP",
     "BENCH_ENV_VAR",
@@ -102,6 +118,10 @@ MAX_CHUNK_SIZE = 64
 #: backends.  The reference's value, tuned on XLA:CPU; a starting point to
 #: re-measure on the card, not a measurement of it.
 LOCAL_COLUMN_BATCH = 16
+
+#: Default passive columns per all-gather collective on the mesh target
+#: (the reference's value).
+MESH_COLUMN_BATCH = 128
 
 #: Fusion-slack factors outside this band are treated as measurement noise
 #: (a wildly off row must not starve or blow the chunk picker).
@@ -145,6 +165,45 @@ SWEEP_OVERHEAD_US = 12.0
 #: Fixed per-chunk-launch cost, amortized over the chunk's colorings —
 #: what makes tiny chunks predictedly worse.
 LAUNCH_OVERHEAD_US = 150.0
+
+#: Nominal mesh link bandwidth (bytes per microsecond) for the comm model:
+#: the reference's ~4 GB/s single-NIC figure, not a measurement of any
+#: card's link.  Calibrate with :data:`MESH_LINK_ENV_VAR`; the scale only
+#: moves the blocking/pipelined crossover.
+MESH_LINK_BYTES_PER_US = 4000.0
+
+#: Environment override (float, bytes/us) for the link-bandwidth constant.
+MESH_LINK_ENV_VAR = "REPRO_MESH_LINK_BYTES_PER_US"
+
+#: Fixed cost per ring step (one send/receive hop and its bookkeeping): the
+#: term that keeps narrow stages on the blocking path, where one all-gather
+#: beats ``n_shards`` tiny hops.
+RING_STEP_OVERHEAD_US = 2.0
+
+
+def mesh_link_bytes_per_us() -> float:
+    """The comm model's link bandwidth, from :data:`MESH_LINK_ENV_VAR` when
+    it holds a positive float.  A bad value warns once and falls back to
+    the default: cost modelling must not crash on a typo'd variable."""
+    raw = os.environ.get(MESH_LINK_ENV_VAR, "").strip()
+    if not raw:
+        return MESH_LINK_BYTES_PER_US
+    try:
+        val = float(raw)
+        if val > 0:
+            return val
+    except ValueError:
+        pass
+    if raw not in _BAD_LINK_VALUES_WARNED:
+        _BAD_LINK_VALUES_WARNED.add(raw)
+        logger.warning(
+            "%s=%r is not a positive float — using the default %.0f bytes/us",
+            MESH_LINK_ENV_VAR, raw, MESH_LINK_BYTES_PER_US,
+        )
+    return MESH_LINK_BYTES_PER_US
+
+
+_BAD_LINK_VALUES_WARNED: set = set()
 
 
 #: memoized slack factors: (path, device kind) -> (file fingerprint, factor)
@@ -358,6 +417,47 @@ def admission_estimate(
 
 
 @dataclass(frozen=True)
+class CommSchedule:
+    """One exec group's plan-time communication decision on the mesh target.
+
+    ``mode`` is ``"blocking"`` (one all-gather per column batch) or
+    ``"pipelined"`` (the double-buffered ring: ``ring_steps == n_shards``
+    send/receive hops per batch, the next row slice in flight while the
+    current one's edge messages are reduced).  ``wire_bytes`` is the
+    per-shard, per-coloring bytes on the wire for the whole stage;
+    ``comm_us`` / ``compute_us`` are its modelled transfer and per-shard
+    SpMM+eMA times; ``overlap_efficiency`` is the fraction of the wire time
+    the ring hides under compute (``min(1, compute_step / comm_step)``).
+    ``reason`` records why the mode was picked (or forced).
+    """
+
+    stage: Tuple[int, int]  # exec-group leader (plan_idx, sub_idx)
+    mode: str
+    ring_steps: int  # 1 for blocking, n_shards for pipelined
+    slice_rows: int  # rows_per_shard: the circulated slice height
+    slice_cols: int  # column_batch: the circulated slice width
+    wire_bytes: int
+    comm_us: float
+    compute_us: float
+    overlap_efficiency: float
+    reason: str
+
+    def describe(self) -> Dict:
+        return {
+            "stage": list(self.stage),
+            "mode": self.mode,
+            "ring_steps": self.ring_steps,
+            "slice_rows": self.slice_rows,
+            "slice_cols": self.slice_cols,
+            "wire_bytes": self.wire_bytes,
+            "comm_us": round(self.comm_us, 3),
+            "compute_us": round(self.compute_us, 3),
+            "overlap_efficiency": round(self.overlap_efficiency, 4),
+            "reason": self.reason,
+        }
+
+
+@dataclass(frozen=True)
 class LadderRung:
     """One step of the memory degradation ladder (:func:`degradation_ladder`)."""
 
@@ -401,7 +501,8 @@ class CostModel:
     factor.  ``fusion_slack=None`` reads the factor of ``device``'s kind
     (:func:`fusion_slack_factor`); a model bound to no device
     (``device=None``, as a plan-only caller's is) prices with 1.0.  A factor
-    outside :data:`SLACK_CLAMP` is rejected, not clamped.
+    outside :data:`SLACK_CLAMP` is rejected, not clamped.  ``device``'s type
+    (``platform``) also sets the comm model's per-element compute cost.
     """
 
     def __init__(
@@ -416,6 +517,7 @@ class CostModel:
         self.plan = plan
         self.graph = graph
         self.itemsize = store_dtype.itemsize
+        self.platform = None if device is None else torch.device(device).type
         if fusion_slack is None:
             fusion_slack = 1.0 if device is None else fusion_slack_factor(device)
         self.fusion_slack = float(fusion_slack)
@@ -425,6 +527,10 @@ class CostModel:
     def pick_local_column_batch(self) -> int:
         """Fused-slice width for the single-device backends."""
         return min(LOCAL_COLUMN_BATCH, self.plan.max_passive_columns)
+
+    def pick_mesh_column_batch(self) -> int:
+        """Columns per all-gather collective on the mesh target."""
+        return min(MESH_COLUMN_BATCH, max(self.plan.max_passive_columns, self.plan.k))
 
     def resident_elements(self) -> int:
         """Live DP-state elements one coloring keeps resident: ``n`` rows
@@ -503,6 +609,137 @@ class CostModel:
                 r_out = len(op.axes) + len(op.forget_vertices)
                 worst = max(worst, 3 * g.n**r_out * binom(cplan.k, op.m))
         return worst
+
+    # -- mesh target (per shard) -----------------------------------------------
+
+    def mesh_transient_elements(
+        self, n_padded: int, edges_per_shard: int, column_batch: int
+    ) -> int:
+        """Per-shard collective scratch: one all-gathered column batch plus
+        the per-shard edge message gather."""
+        return (n_padded + edges_per_shard) * column_batch
+
+    def mesh_resident_elements(
+        self, rows_per_shard: int, column_batch: int, ema_mode: str = "streamed"
+    ) -> int:
+        """Per-shard live DP state: local rows times the liveness-aware peak
+        of padded M columns (memoised SpMM products count too outside the
+        streamed eMA mode)."""
+        peak = self.plan.padded_peak_columns(
+            pad_unit=column_batch, track_products=(ema_mode != "streamed")
+        )
+        return rows_per_shard * peak
+
+    def comm_schedule(
+        self,
+        leader,
+        n_shards: int,
+        *,
+        column_batch: int,
+        rows_per_shard: Optional[int] = None,
+        edges_per_shard: Optional[int] = None,
+        link_bytes_per_us: Optional[float] = None,
+        forced: Optional[str] = None,
+    ) -> CommSchedule:
+        """Blocking vs pipelined for one exec group's mesh SpMM sweeps.
+
+        Per stage, per shard, per coloring the collective moves
+        ``(n_shards - 1) * rows * C_p_padded`` store elements whichever the
+        mode; the ring buys back the part of that transfer it can hide under
+        the stage's per-shard compute (edge-bucket gather + eMA, priced at
+        :func:`work_element_us` of :attr:`platform`).  Pipeline iff the
+        predicted hidden time exceeds the ring's own overhead
+        (``n_batches * n_shards * RING_STEP_OVERHEAD_US``).  ``forced``
+        (``"blocking"`` | ``"pipelined"``) records an env or caller override
+        verbatim; the model still fills in the other fields."""
+        p_idx, i = leader
+        cplan = self.plan.counting_plans[p_idx]
+        sub = cplan.partition.subs[i]
+        passive_cols = binom(cplan.k, cplan.partition.subs[sub.passive].size)
+        cb = max(1, int(column_batch))
+        n_batches = max(1, math.ceil(passive_cols / cb))
+        padded_cols = n_batches * cb
+        rows = (
+            int(rows_per_shard)
+            if rows_per_shard
+            else max(1, -(-self.graph.n // max(1, n_shards)))
+        )
+        edges = (
+            int(edges_per_shard)
+            if edges_per_shard
+            else max(1, -(-self.graph.num_directed // max(1, n_shards)))
+        )
+        link = link_bytes_per_us or mesh_link_bytes_per_us()
+        wire_bytes = (n_shards - 1) * rows * padded_cols * self.itemsize
+        comm_us = wire_bytes / link
+        # per-shard compute: the edge-bucket gather over the stage's padded
+        # passive width plus this shard's share of the group's eMA work
+        gather = edges * padded_cols
+        ema = 0
+        for q, j in self.plan.exec_groups[leader]:
+            mplan = self.plan.counting_plans[q]
+            msub = mplan.partition.subs[j]
+            ema += rows * binom(mplan.k, msub.size) * binom(
+                msub.size, mplan.partition.subs[msub.active].size
+            )
+        compute_us = (gather + ema) * work_element_us(self.platform)
+        if n_shards >= 2:
+            comm_step = comm_us / (n_shards - 1)
+            compute_step = compute_us / n_shards
+            overlap = min(1.0, compute_step / comm_step) if comm_step > 0 else 1.0
+        else:
+            overlap = 0.0
+        hidden_us = overlap * comm_us
+        ring_cost_us = n_batches * n_shards * RING_STEP_OVERHEAD_US
+        if forced in ("blocking", "pipelined"):
+            mode = forced
+            reason = f"forced {forced} (env/caller override)"
+        elif n_shards < 2:
+            mode = "blocking"
+            reason = "single shard — nothing to overlap"
+        elif hidden_us > ring_cost_us:
+            mode = "pipelined"
+            reason = f"hidden {hidden_us:.1f}us > ring overhead {ring_cost_us:.1f}us"
+        else:
+            mode = "blocking"
+            reason = f"hidden {hidden_us:.1f}us <= ring overhead {ring_cost_us:.1f}us"
+        return CommSchedule(
+            stage=(p_idx, i),
+            mode=mode,
+            ring_steps=n_shards if mode == "pipelined" else 1,
+            slice_rows=rows,
+            slice_cols=cb,
+            wire_bytes=int(wire_bytes),
+            comm_us=comm_us,
+            compute_us=compute_us,
+            overlap_efficiency=overlap,
+            reason=reason,
+        )
+
+    def mesh_comm_schedules(
+        self,
+        n_shards: int,
+        *,
+        column_batch: int,
+        rows_per_shard: Optional[int] = None,
+        edges_per_shard: Optional[int] = None,
+        link_bytes_per_us: Optional[float] = None,
+        forced: Optional[str] = None,
+    ) -> Dict[Tuple[int, int], CommSchedule]:
+        """The per-stage comm plan: one :class:`CommSchedule` per tree
+        exec-group leader (the unit one passive sweep serves)."""
+        return {
+            leader: self.comm_schedule(
+                leader,
+                n_shards,
+                column_batch=column_batch,
+                rows_per_shard=rows_per_shard,
+                edges_per_shard=edges_per_shard,
+                link_bytes_per_us=link_bytes_per_us,
+                forced=forced,
+            )
+            for leader in self.tree_group_leaders()
+        }
 
     def bytes_per_coloring(self, transient_elements: int, resident_elements: int) -> int:
         """Live bytes one coloring contributes to a chunk."""
@@ -625,6 +862,7 @@ class CostModel:
         chunk_size: int,
         calibration: Optional[Dict[str, float]] = None,
         platform: Optional[str] = None,
+        mesh_shards: Optional[int] = None,
     ) -> Tuple[float, float]:
         """``(calibrated_us, raw_us)`` per coloring for one
         :class:`~repro_torch.tune.config.TuningConfig`.
@@ -633,9 +871,14 @@ class CostModel:
         measured/predicted ratio; ``raw_us`` skips that (it is what new
         measurements are ratioed against).  Bag ops enter only through the
         launch term: the lattice ranks on the tree groups it can rebind.
-        (The reference routes ``mesh`` configs through its comm model here;
-        that waits for the mesh slice, ROADMAP queue 1 item 11.)"""
+        ``default_backend == "mesh"`` configs route through the comm model
+        (:meth:`predict_mesh_config_us`; ``mesh_shards`` is the ring size)."""
         calibration = calibration or {}
+        if config.default_backend == "mesh":
+            return self.predict_mesh_config_us(
+                config, chunk_size=chunk_size, n_shards=mesh_shards or 1,
+                calibration=calibration,
+            )
         bindings = config.bindings()
         cb = config.column_batch or self.pick_local_column_batch()
         raw = calibrated = LAUNCH_OVERHEAD_US / max(1, int(chunk_size))
@@ -646,6 +889,37 @@ class CostModel:
             calibrated += cost * calibration.get(backend, 1.0)
         return calibrated, raw
 
+    def predict_mesh_config_us(
+        self,
+        config,
+        *,
+        chunk_size: int,
+        n_shards: int,
+        calibration: Optional[Dict[str, float]] = None,
+    ) -> Tuple[float, float]:
+        """``(calibrated_us, raw_us)`` per coloring for a mesh config: per
+        stage, the per-shard compute plus the wire time the config's comm
+        mode leaves visible, plus the per-sweep and (pipelined) per-ring-step
+        overheads — the figures :meth:`comm_schedule` compares, summed."""
+        calibration = calibration or {}
+        cb = config.column_batch or self.pick_mesh_column_batch()
+        raw = LAUNCH_OVERHEAD_US / max(1, int(chunk_size))
+        for leader in self.tree_group_leaders():
+            sched = self.comm_schedule(
+                leader, n_shards, column_batch=cb, forced=config.mesh_comm
+            )
+            per_slice = max(0, n_shards - 1) * sched.slice_rows * sched.slice_cols * self.itemsize
+            n_batches = max(1, round(sched.wire_bytes / per_slice)) if per_slice else 1
+            pipelined = sched.ring_steps > 1
+            visible_comm = (
+                sched.comm_us * (1.0 - sched.overlap_efficiency) if pipelined else sched.comm_us
+            )
+            step_overhead = (
+                n_batches * sched.ring_steps * RING_STEP_OVERHEAD_US if pipelined else 0.0
+            )
+            raw += sched.compute_us + visible_comm + n_batches * SWEEP_OVERHEAD_US + step_overhead
+        return raw * calibration.get("mesh", 1.0), raw
+
     def candidate_lattice(
         self,
         *,
@@ -654,6 +928,7 @@ class CostModel:
         memory_budget_bytes: int = DEFAULT_MEMORY_BUDGET_BYTES,
         chunk_size: Optional[int] = None,
         include_mixed: bool = True,
+        mesh_shards: Optional[int] = None,
     ) -> List[RankedCandidate]:
         """Ranked tuning candidates, cheapest-predicted first.
 
@@ -664,9 +939,12 @@ class CostModel:
         plus (``include_mixed``) one greedy mixed candidate per (budget,
         column batch) binding each tree exec group to its cheapest backend.
         ``blocked`` candidates carry ``column_batch=None``, one per (budget,
-        chunk).  Two budgets that land on the same runtime configuration
-        keep only the better-ranked.  (The reference's ``mesh_shards`` axis
-        waits for the mesh slice, ROADMAP queue 1 item 11.)"""
+        chunk).  With ``mesh_shards`` (the tuner ran with a ``mesh=``), mesh
+        candidates join per budget with the comm mode (``blocking`` |
+        ``pipelined``) as their axis, priced by the comm model, at the mesh
+        column batch and the chunk the resident footprint picks.  Two
+        budgets that land on the same runtime configuration keep only the
+        better-ranked."""
         from repro_torch.tune.config import TuningConfig  # local: cycle-free
 
         if calibration is None:
@@ -687,7 +965,8 @@ class CostModel:
                 return
             seen.add(config.key_fragment())
             calibrated, raw = self.predict_config_us(
-                config, chunk_size=config.chunk_size, calibration=calibration, platform=platform
+                config, chunk_size=config.chunk_size, calibration=calibration,
+                platform=platform, mesh_shards=mesh_shards,
             )
             candidates.append(RankedCandidate(config=config, predicted_us=calibrated, raw_us=raw))
 
@@ -746,6 +1025,19 @@ class CostModel:
                                 chunk_size=chunk,
                                 memory_budget_bytes=bud,
                             ))
+            if mesh_shards:
+                # the comm mode is the swept axis; the chunk comes from the
+                # resident footprint (the dominant per-shard term)
+                per = self.bytes_per_coloring(0, resident)
+                picked = int(chunk_size) if chunk_size else self.pick_chunk_size(per, bud)
+                for comm in ("blocking", "pipelined"):
+                    _add(TuningConfig(
+                        default_backend="mesh",
+                        column_batch=self.pick_mesh_column_batch(),
+                        chunk_size=picked,
+                        memory_budget_bytes=bud,
+                        mesh_comm=comm,
+                    ))
         candidates.sort(key=lambda c: (c.predicted_us, repr(c.config.key_fragment())))
         unique, seen_runtime = [], set()
         for cand in candidates:

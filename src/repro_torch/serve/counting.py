@@ -211,6 +211,10 @@ class CountingService:
         don't pass their own ``retry_policy=`` at submit.
       quarantine_base_s: first quarantine window for an engine key that
         keeps failing deterministically (doubles per re-quarantine).
+      engine_kwargs: extra ``CountingEngine`` construction kwargs every
+        build forwards (e.g. ``mesh=`` for a mesh-backed service, whose
+        every rank runs the same service on the same submissions); not
+        part of the cache key, callers own their identity.
     """
 
     def __init__(
@@ -227,6 +231,7 @@ class CountingService:
         clock: Optional[Clock] = None,
         retry_policy: Optional[RetryPolicy] = None,
         quarantine_base_s: float = DEFAULT_QUARANTINE_BASE_S,
+        engine_kwargs: Optional[Dict] = None,
     ):
         self.device = resolve_device(device)
         self.backend = backend
@@ -240,6 +245,7 @@ class CountingService:
             retry_policy if retry_policy is not None else DEFAULT_RETRY_POLICY
         )
         self.quarantine_base_s = float(quarantine_base_s)
+        self.engine_kwargs = dict(engine_kwargs or {})
         self._graphs: Dict[str, Graph] = {}
         self._signatures: Dict[str, str] = {}
         self._cache = EngineCache(capacity=max_engines)
@@ -429,6 +435,7 @@ class CountingService:
                 dtype_policy=self.dtype_policy,
                 chunk_size=overrides.get("chunk_size", self.chunk_size),
                 memory_budget_bytes=self.memory_budget_bytes,
+                **self.engine_kwargs,
             )
             if "column_batch" in overrides:
                 kwargs["column_batch"] = overrides["column_batch"]
@@ -980,6 +987,7 @@ class CountingService:
                 dtype_policy=self.dtype_policy,
                 chunk_size=self.chunk_size,
                 memory_budget_bytes=self.memory_budget_bytes,
+                **self.engine_kwargs,
             )
 
         engine = self._cache.get(key, build)

@@ -12,7 +12,8 @@ system can fail — by calling the module-level hooks:
 
 * :func:`maybe_fail` at ``engine_build`` (``CountingEngine.__init__``),
   ``launch`` (``CountingEngine.count_keys_chunk``), and ``collective``
-  (a mesh backend's dispatch; the port has none yet);
+  (the mesh backend's collective dispatch, checked at the same launch
+  boundary, once per ring step on the pipelined path);
 * :func:`corrupt_result` on the ``launch`` result path (NaN/Inf injection
   into otherwise-successful chunk results);
 * :func:`clock_read` at a frontend scheduler's per-round clock read.

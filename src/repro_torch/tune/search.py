@@ -22,7 +22,13 @@ The port of ``repro.tune.search``.  Protocol:
 
 Uniform probe engines pass their backend **explicitly** — explicit beats
 the ``REPRO_ENGINE_BACKEND`` env override, so a set env var cannot poison
-the measurements.  ``measure_fn`` is injectable so tests can replay canned
+the measurements.
+
+With ``mesh=`` every rank of the group runs :func:`tune` with the same
+arguments: mesh candidates join the lattice (the comm mode as their axis)
+and their probe engines bind the group, each rank measures every probe,
+the ranks take the slowest rank's time per candidate (one ``all_reduce``)
+so they agree on the winner, and rank 0 alone writes the cache.  ``measure_fn`` is injectable so tests can replay canned
 measurements and assert the search is a pure function of them.
 """
 
@@ -34,6 +40,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .cache import TuningCache, canons_digest, device_kind, entry_key
 from .config import TuningConfig
@@ -125,6 +132,7 @@ def tune(
     cache_path: Optional[str] = None,
     save: bool = True,
     measure_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> TuneResult:
     """Tune one ``(graph, template set)`` pair on ``device`` (``None``: the
     CUDA card; ``"cpu"`` only when asked).
@@ -136,8 +144,9 @@ def tune(
     The lattice sweeps ``memory_budget_bytes`` and its half; each probe
     engine runs under the budget it was priced at, and the winner carries
     it in its ``key_fragment()``.  With a fixed ``measure_fn`` the same
-    inputs give the identical :class:`TuningConfig`.  (The reference's
-    ``mesh=`` candidates wait for the mesh slice, ROADMAP queue 1 item 11.)
+    inputs give the identical :class:`TuningConfig`.  With ``mesh=`` (a
+    1-D ``DeviceMesh`` or ``ProcessGroup``; see the module docstring) mesh
+    candidates join the lattice and every rank returns the same winner.
     """
     from repro_torch.core.engine import CountingEngine, DtypePolicy, _dtype_name
     from repro_torch.device import resolve_device
@@ -163,8 +172,15 @@ def tune(
     policy = DtypePolicy.resolve(dtype_policy)
     cost = CostModel(plan, graph, policy.store_dtype, device=dev)
     calibration = load_backend_calibration(cache_path)
+    group = mesh_shards = None
+    if mesh is not None:
+        from repro_torch.core.distributed import resolve_group
+
+        group = resolve_group(mesh)
+        mesh_shards = dist.get_world_size(group)
     lattice = cost.candidate_lattice(
-        platform=platform, calibration=calibration, memory_budget_bytes=budget
+        platform=platform, calibration=calibration, memory_budget_bytes=budget,
+        mesh_shards=mesh_shards,
     )
     if not lattice:  # pragma: no cover - lattice always has >= 1 backend
         raise RuntimeError("empty candidate lattice")
@@ -191,6 +207,8 @@ def tune(
             chunk_size=cfg.chunk_size,
             column_batch=cfg.column_batch,
             memory_budget_bytes=cfg.memory_budget_bytes or budget,
+            mesh=mesh if cfg.backend_name == "mesh" else None,
+            mesh_comm=cfg.mesh_comm if cfg.backend_name == "mesh" else None,
         )
         us = float(measure_fn(engine, probes))
         # free the probe engine before the next one is built
@@ -207,6 +225,16 @@ def tune(
             rank + 1, len(probed), cfg.backend_name, cfg.column_batch, cfg.chunk_size,
             cand.predicted_us, us,
         )
+    if group is not None:
+        # every rank must pick the same winner: the slowest rank's time
+        times = torch.tensor([m.measured_us for m in measured], dtype=torch.float64, device=dev)
+        dist.all_reduce(times, op=dist.ReduceOp.MAX, group=group)
+        measured = [
+            MeasuredCandidate(config=m.config, predicted_us=m.predicted_us, raw_us=m.raw_us,
+                              measured_us=float(t))
+            for m, t in zip(measured, times.tolist())
+        ]
+        save = save and dist.get_rank(group) == 0
     # winner: min measured; ties break to the prediction, then lattice rank
     win_idx = min(
         range(len(measured)),

@@ -173,9 +173,14 @@ def test_backend_selection_ladder(monkeypatch):
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
+    """The mesh backend is ported (``tests/test_torch_mesh.py``); without an
+    initialised ``torch.distributed`` group it refuses as the reference's
+    does without a mesh, naming what it needs."""
     _, g = _graphs("grid")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="torch.distributed"):
         CountingEngine(g, [port_templates.get_template("u3")], device="cpu", backend="mesh")
+    with pytest.raises(ValueError, match="init_process_group"):
+        CountingEngine(g, [port_templates.get_template("u3")], device="cpu", mesh=object())
     # the mixed backend is ported (tests/test_torch_tune.py); without its
     # TuningConfig it refuses as the reference does
     with pytest.raises(ValueError, match="TuningConfig"):

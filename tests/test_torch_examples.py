@@ -15,12 +15,15 @@ import importlib.util
 import io
 import os
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 import repro.plan.cost as ref_cost
 from repro.configs.registry import get_arch as ref_get_arch
+from repro.core import engine as ref_engine
 from repro.core import estimator as ref_estimator
 from repro.core import graph as ref_graph
 from repro.core import templates as ref_templates
@@ -96,3 +99,29 @@ def test_subgraph2vec_smoke_config_estimate_matches_reference():
     assert got.iterations == want.iterations == 8
     np.testing.assert_allclose(got.per_iteration, np.asarray(want.per_iteration), rtol=RTOL)
     assert got.mean == pytest.approx(want.mean, rel=RTOL)
+
+
+def test_distributed_example_matches_the_reference_local_estimate():
+    """``examples/torch/distributed_counting.py`` at 2 gloo ranks, run as a
+    user runs it (it spawns its own ranks): the reference example's lines,
+    its estimate within ``RTOL`` of the reference's local engine on the same
+    seed (the reference example's own mesh cannot run here), and its
+    mesh-vs-local cross-check under ``1e-5``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-W", "ignore::FutureWarning",
+         os.path.join(REPO, "examples", "torch", "distributed_counting.py"),
+         "--device", "cpu", "--ranks", "2", "--timeout", "240"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "mesh: 2 ranks (gloo, cpu)"
+    assert [line.split(":")[0] for line in lines] == [
+        "mesh", "graph", "distributed estimate", "mesh vs local engine"]
+    want = ref_engine.CountingEngine(
+        ref_graph.rmat_graph(2048, 20_000, seed=11), [ref_templates.get_template("u7")],
+        backend="edges").estimate(iterations=8, seed=0)[0]
+    got = float(_NUMBER.findall(lines[2])[0])
+    assert got == pytest.approx(want.mean, rel=1e-3)  # printed to 4 digits
+    assert float(_NUMBER.findall(lines[3])[-1]) < 1e-5

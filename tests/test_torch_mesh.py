@@ -1,0 +1,467 @@
+"""The port's mesh backend on ``torch.distributed`` (gloo on the CPU).
+
+Mirrors ``tests/test_engine_distributed.py``, ``tests/test_mesh_pipeline.py``,
+the counting cases of ``tests/test_distributed.py`` and the mesh cases of
+``tests/test_faults.py``.  The reference's own mesh engine fails on more
+than one virtual device under the installed JAX (ROADMAP queue 3), so the
+contract is held against the reference's **local** engines: mesh totals
+within ``rtol=1e-5`` of them (the reference's mesh contract), bf16 within
+``2e-2``.  Blocking and pipelined collectives must agree bitwise.
+
+The multi-rank cases run once per world size, 2 and 4 gloo ranks, in one
+spawned group each (``tests/torch_mesh_ranks.py``, which imports only the
+port); every rank returns its results, and the ranks must agree.  The
+one-rank cases run in this process, in a gloo group of one, beside the
+reference's mesh engine on a one-device mesh, which does run here.
+"""
+
+import os
+import tempfile
+from datetime import timedelta
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.compat import set_mesh
+from repro.core import CountingEngine as RefEngine
+from repro.core import build_counting_plan as ref_build_plan
+from repro.core import get_template as ref_template
+from repro.core import rmat_graph as ref_rmat
+from repro.core.distributed import make_distributed_count_fn as ref_count_fn
+from repro.core.distributed import shard_graph as ref_shard_graph
+from repro.plan import cost as ref_cost
+from repro.serve.counting import CountingService as RefService
+from repro.testing.faults import FaultPlan as RefFaultPlan
+from repro.testing.faults import FaultSpec as RefFaultSpec
+
+import torch_mesh_ranks as R
+from repro_torch.core.distributed import resolve_group
+from repro_torch.core.engine import CountingEngine
+from repro_torch.core.graph import rmat_graph
+from repro_torch.core.templates import get_template
+from repro_torch.exec.mesh import BagPlanUnsupported
+from repro_torch.plan.cost import CostModel
+from repro_torch.serve.counting import CountingService
+from repro_torch.testing.faults import FaultPlan, FaultSpec
+from repro_torch.testing.ranks import run_ranks
+
+WORLDS = (2, 4)
+RTOL = 1e-5  # the reference's mesh == local contract
+BF16_RTOL = 2e-2
+#: a spawned group's own wall-clock limit (and its collectives' timeout)
+RANKS_TIMEOUT_S = 300.0
+#: ring templates also held against a local engine in this process (u10 and
+#: u12 there take tens of seconds when the suite's workers share the CPU;
+#: their totals are held by the bitwise blocking == pipelined check)
+RING_LOCAL_CHECK = ("u5-1", "u7")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_env_overrides():
+    saved = {v: os.environ.pop(v, None) for v in ("REPRO_MESH_COMM", "REPRO_ENGINE_BACKEND")}
+    yield
+    for var, val in saved.items():
+        if val is not None:
+            os.environ[var] = val
+
+
+@pytest.fixture(scope="module")
+def ranks():
+    """``{world: [rank results]}``: ``tests/torch_mesh_ranks.all_cases`` at
+    2 and 4 gloo ranks."""
+    return {w: run_ranks(R.all_cases, w, timeout_s=RANKS_TIMEOUT_S) for w in WORLDS}
+
+
+def _same_on_every_rank(results, get):
+    vals = [get(r) for r in results]
+    for v in vals[1:]:
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(vals[0]))
+    return vals[0]
+
+
+# ---------------------------------------------------------------------------
+# the engine at 2 and 4 ranks against the reference's local engines
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_u3_u7():
+    out = {}
+    g = ref_rmat(240, 1200, seed=5)
+    for name in R.U3_U7:
+        t = ref_template(name)
+        colors = np.random.default_rng(3).integers(0, t.k, size=g.n)
+        out[name] = float(RefEngine(g, [t], backend="edges").raw_counts(colors)[0])
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(1), 7))
+    out["keys_u6"] = RefEngine(g, [ref_template("u6")], backend="edges",
+                               chunk_size=3).count_keys(keys)
+    return out
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", R.U3_U7)
+def test_mesh_backend_matches_reference_local_u3_to_u7(ranks, ref_u3_u7, world, name):
+    got = _same_on_every_rank(ranks[world], lambda r: r["engine"][("raw", name)])
+    assert got.shape == (1,)
+    assert abs(float(got[0]) - ref_u3_u7[name]) <= RTOL * max(abs(ref_u3_u7[name]), 1.0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_count_keys_matches_reference_keys(ranks, ref_u3_u7, world):
+    """The batched PRNG-key path: same keys, same colorings, chunks of 3
+    over 7 keys (the last chunk padded)."""
+    got = _same_on_every_rank(ranks[world], lambda r: r["engine"]["keys_u6"])
+    np.testing.assert_allclose(got, ref_u3_u7["keys_u6"], rtol=RTOL)
+    d = ranks[world][0]["engine"]["describe_u6"]
+    assert d["backend"] == {"name": "mesh", "source": "mesh", "reason": "mesh= given",
+                            "tuning": None}
+    assert d["column_batch"] == 8 and d["chunk_size"] == 3
+    assert d["comm"]["source"] == "cost-model"
+    assert {s["ring_steps"] for s in d["comm"]["schedule"]} <= {1, world}
+
+
+@pytest.fixture(scope="module")
+def ref_skewed_u6():
+    g = ref_rmat(300, 2400, seed=3, a=0.7, b=0.12, c=0.12)
+    colors = np.random.default_rng(0).integers(0, 6, size=g.n)
+    return float(RefEngine(g, [ref_template("u6")], backend="edges").raw_counts(colors)[0])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("tag", [tag for tag, _ in R.MODES])
+def test_mesh_backend_modes_and_policy(ranks, ref_skewed_u6, world, tag):
+    """The loop eMA, the unbalanced layout, compressed gathers and the bf16
+    policy against the reference's local fp32 engine on a skewed graph."""
+    tol = BF16_RTOL if tag.startswith("bf16") else RTOL
+    got = float(_same_on_every_rank(ranks[world], lambda r: r["engine"][("mode", tag)])[0])
+    assert abs(got - ref_skewed_u6) <= tol * max(abs(ref_skewed_u6), 1.0)
+
+
+@pytest.fixture(scope="module")
+def ref_treelets():
+    g = ref_rmat(240, 1200, seed=2)
+    keys = np.asarray(jax.random.split(jax.random.PRNGKey(7), 4))
+    return np.concatenate([
+        RefEngine(g, [ref_template(n)], backend="edges", chunk_size=2).count_keys(keys)
+        for n in R.TREELETS
+    ], axis=1)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_backend_multi_template_sharing(ranks, ref_treelets, world):
+    got = _same_on_every_rank(ranks[world], lambda r: r["engine"]["multi"])
+    np.testing.assert_allclose(got, ref_treelets, rtol=RTOL)
+    canons = ranks[world][0]["engine"]["multi_canons"]
+    assert len({k for c in canons for k in c}) < sum(len(c) for c in canons)  # shared
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_chunk_picker_uses_shard_model(ranks, world):
+    """The memory model is per shard, and equals the reference's formulas
+    on the reference's shard geometry at the same rank count."""
+    c = ranks[world][0]["engine"]["chunk"]
+    assert c["tiny_chunk"] == 1 and c["wide_chunk"] > 1
+    assert c["tiny_bytes"] == c["wide_bytes"] > 0
+    np.testing.assert_allclose(c["tiny"], c["wide"], rtol=1e-6)
+    g = ref_rmat(240, 1200, seed=2)
+    sh = ref_shard_graph(g, world, balance_degrees=True, bucket_by_src=True)
+    plan_cost = RefEngine(g, [ref_template("u5-2")], backend="edges").cost
+    cb = 8
+    want = ref_cost.CostModel(plan_cost.plan, g, jnp.float32, fusion_slack=1.0).bytes_per_coloring(
+        plan_cost.mesh_transient_elements(sh.n_padded, sh.edges_per_shard, cb),
+        plan_cost.mesh_resident_elements(sh.rows_per_shard, cb),
+    )
+    assert c["wide_bytes"] == want
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_estimator_mesh_path(ranks, world):
+    g = ref_rmat(240, 1200, seed=2)
+    want = RefEngine(g, [ref_template("u5-2")], backend="edges").estimate(4, seed=2)[0]
+    got = _same_on_every_rank(ranks[world], lambda r: r["engine"]["estimate_u5_2"])
+    np.testing.assert_allclose(got, want.per_iteration, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the ring: blocking == pipelined bitwise, and the fault seam per ring step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", R.RING_TEMPLATES)
+def test_pipelined_bit_exact_vs_blocking(ranks, world, name):
+    res = [r["ring"][name] for r in ranks[world]]
+    for r in res:
+        assert r["modes"] == ("blocking", "pipelined")
+        np.testing.assert_array_equal(r["raw"][0], r["raw"][1])
+        np.testing.assert_array_equal(r["keys"][0], r["keys"][1])
+        np.testing.assert_array_equal(r["raw"][0], res[0]["raw"][0])
+    if name in RING_LOCAL_CHECK:
+        # and the ring agrees with the port's local engine on the coloring
+        g = rmat_graph(60 * world, 300 * world, seed=5)
+        t = get_template(name)
+        colors = np.random.default_rng(3).integers(0, t.k, size=g.n)
+        local = float(CountingEngine(g, [t], device="cpu", backend="edges").raw_counts(colors)[0])
+        assert abs(float(res[0]["raw"][1][0]) - local) <= RTOL * abs(local)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_pipelined_comm_plan_is_described(ranks, world):
+    comm = ranks[world][0]["ring"]["describe_ring"]
+    assert comm["mode"] == "pipelined" and comm["source"] == "explicit"
+    assert comm["collective_dispatches"] == world
+    assert all(s["ring_steps"] == world for s in comm["schedule"])
+    assert "fallback_reason" not in comm
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_pipelined_fault_schedule_replays_exactly(ranks, world):
+    """Under a seeded collective FaultPlan the ring visits the site once per
+    ring step; identically seeded runs fire identically on every rank, and
+    the surviving counts are bitwise equal, blocking's too."""
+    for r in ranks[world]:
+        (c1, o1, f1, d1), (c2, o2, f2, d2), (cb, ob, fb, db) = r["ring"]["replay"]
+        assert f1 == f2 and o1 == o2 and d1 == d2
+        assert c1 is not None and np.array_equal(c1, c2) and np.array_equal(c1, cb)
+        assert 1 <= f1["collective"] <= 3 and o1.count("fault") == f1["collective"]
+        assert r["ring"]["visits"] == (world, 1)
+    assert len({repr(r["ring"]["replay"][0][1]) for r in ranks[world]}) == 1
+
+
+# ---------------------------------------------------------------------------
+# make_distributed_count_fn against the reference's (one-device mesh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def ref_count_fn_totals():
+    mesh = jax.make_mesh((1,), ("dev",))
+    out = {}
+    g = ref_rmat(600, 3000, seed=2)
+    plan = ref_build_plan(ref_template("u6"))
+    sg = ref_shard_graph(g, 1)
+    colors = np.random.default_rng(1).integers(0, plan.k, size=sg.n_padded).astype(np.int32)
+    fn = ref_count_fn(plan, mesh, sg.n_padded, sg.edges_per_shard, column_batch=8)
+    with set_mesh(mesh):
+        out["u6"] = float(fn(jnp.asarray(colors), jnp.asarray(sg.src),
+                             jnp.asarray(sg.dst_local), jnp.asarray(sg.edge_mask)))
+    colors7 = np.random.default_rng(1).integers(0, 7, size=g.n)
+    out["u7"] = float(RefEngine(g, [ref_template("u7")], backend="edges").raw_counts(colors7)[0])
+    skewed = ref_rmat(400, 4000, seed=3, a=0.7, b=0.12, c=0.12)
+    colors = np.random.default_rng(0).integers(0, 5, size=skewed.n)
+    out["balanced"] = float(RefEngine(skewed, [ref_template("u5-2")],
+                                      backend="edges").raw_counts(colors)[0])
+    return out
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("mode", ["loop", "streamed"])
+@pytest.mark.parametrize("name", ["u6", "u7"])
+def test_distributed_count_fn_matches_reference(ranks, ref_count_fn_totals, world, mode, name):
+    got = _same_on_every_rank(ranks[world], lambda r: r["count_fn"][(name, mode)])
+    want = ref_count_fn_totals[name]
+    assert abs(got - want) <= RTOL * abs(want)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_distributed_count_balance_degrees(ranks, ref_count_fn_totals, world):
+    got = _same_on_every_rank(ranks[world], lambda r: r["count_fn"]["balanced"])
+    want = ref_count_fn_totals["balanced"]
+    assert abs(got - want) <= RTOL * abs(want)
+    plain, balanced = ranks[world][0]["count_fn"]["balanced_edges_per_shard"]
+    g = ref_rmat(400, 4000, seed=3, a=0.7, b=0.12, c=0.12)
+    assert (plain, balanced) == (ref_shard_graph(g, world).edges_per_shard,
+                                 ref_shard_graph(g, world, balance_degrees=True).edges_per_shard)
+    assert balanced < plain
+
+
+# ---------------------------------------------------------------------------
+# the service and the tuner at 2 and 4 ranks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_service_rejects_bag_plans_and_serves_trees(ranks, world):
+    svc = [r["service"]["service"] for r in ranks[world]]
+    assert all(s == svc[0] for s in svc)
+    s = svc[0]
+    assert (s["bag_kind"], s["bag_cause"]) == ("invalid", "BagPlanUnsupported")
+    assert s["counters"]["invalid"] == 1 and s["counters"]["deterministic"] == 0
+    assert s["ok_done"] and np.isfinite(s["means"]).all()
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_mesh_tune_picks_one_winner_on_every_rank(ranks, world):
+    tuned = [r["service"]["tune"] for r in ranks[world]]
+    assert all(t == tuned[0] for t in tuned)
+    winner = tuned[0]["winner"]
+    assert winner[1] == "mesh" and winner[-1] in ("blocking", "pipelined")
+    mesh_times = [us for frag, us in tuned[0]["measured"] if frag[1] == "mesh"]
+    # the slowest rank's time: rank world-1 reports 10 + (world - 1)
+    assert sorted(set(mesh_times)) == [10.0 + world - 1]
+    assert {frag[-1] for frag, _ in tuned[0]["measured"] if frag[1] == "mesh"} == {
+        "blocking", "pipelined"}
+
+
+# ---------------------------------------------------------------------------
+# one rank, in this process, beside the reference's one-device mesh engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def group1():
+    """A gloo group of one rank in this process (torn down after the module)."""
+    tmp = tempfile.mkdtemp(prefix="torch-mesh-")
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp, "store"),
+                            rank=0, world_size=1, timeout=timedelta(seconds=120))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def ref_mesh1():
+    return jax.make_mesh((1,), ("dev",))
+
+
+def test_one_rank_engine_equals_reference_mesh_engine(group1, ref_mesh1, monkeypatch):
+    """At one shard the reference's mesh engine runs here: same comm plan,
+    same per-shard memory model and chunk (the reference's fusion slack
+    pinned to 1.0, as the port's is on the CPU), totals within the
+    contract."""
+    monkeypatch.setattr(ref_cost, "load_fusion_slack", lambda path=None: 1.0)
+    g_ref, g = ref_rmat(240, 1200, seed=5), rmat_graph(240, 1200, seed=5)
+    colors = np.random.default_rng(3).integers(0, 6, size=g.n)
+    ref = RefEngine(g_ref, [ref_template("u6")], backend="mesh", mesh=ref_mesh1, column_batch=8)
+    got = CountingEngine(g, [get_template("u6")], device="cpu", backend="mesh", mesh=group1,
+                         column_batch=8)
+    assert got.describe()["comm"] == ref.describe()["comm"]
+    assert got.describe()["comm"]["mode"] == "blocking"
+    assert "single shard" in ref.backend_impl._pipeline_eligibility(1)[1]
+    for attr in ("transient_elements", "resident_elements"):
+        assert getattr(got.backend_impl, attr)() == getattr(ref.backend_impl, attr)()
+    assert got.bytes_per_coloring() == ref.bytes_per_coloring()
+    assert got.chunk_size == ref.chunk_size
+    a, b = float(ref.raw_counts(colors)[0]), float(got.raw_counts(colors)[0])
+    assert abs(a - b) <= RTOL * abs(a)
+
+
+def test_one_rank_forced_pipelined_falls_back_with_the_reason(group1, ref_mesh1):
+    g_ref, g = ref_rmat(240, 1200, seed=5), rmat_graph(240, 1200, seed=5)
+    ref = RefEngine(g_ref, [ref_template("u5-1")], backend="mesh", mesh=ref_mesh1,
+                    column_batch=8, mesh_comm="pipelined")
+    got = CountingEngine(g, [get_template("u5-1")], device="cpu", mesh=group1,
+                         column_batch=8, mesh_comm="pipelined")
+    assert got.backend == "mesh"
+    assert got.describe()["comm"] == ref.describe()["comm"]
+    assert got.describe()["comm"]["fallback_reason"] == "single shard — nothing to overlap"
+
+
+def test_mesh_accepts_a_one_dimensional_device_mesh_only(group1):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    g = rmat_graph(240, 1200, seed=5)
+    mesh = init_device_mesh("cpu", (1,))
+    eng = CountingEngine(g, [get_template("u3")], device="cpu", mesh=mesh, column_batch=8)
+    assert eng.backend_impl.group is resolve_group(mesh)
+    with pytest.raises(ValueError, match="1-D"):
+        CountingEngine(g, [get_template("u3")], device="cpu", mesh=init_device_mesh("cpu", (1, 1)))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        CountingEngine(g, [get_template("u3")], device="cpu", mesh=group1, ema_mode="vectorized")
+
+
+def _services(group1, ref_mesh1, **kw):
+    ref = RefService(backend="mesh", chunk_size=4, engine_kwargs={"mesh": ref_mesh1}, **kw)
+    got = CountingService(device="cpu", backend="mesh", chunk_size=4,
+                          engine_kwargs={"mesh": group1}, **kw)
+    for svc, fn in ((ref, ref_rmat), (got, rmat_graph)):
+        svc.register_graph("a", fn(240, 1200, seed=2))
+    return ref, got
+
+
+def test_mesh_rejects_bag_plans_as_a_structured_query_failure(group1, ref_mesh1):
+    for svc in _services(group1, ref_mesh1):
+        q = svc.submit("a", "triangle", iterations=8, seed=1)  # non-tree: bag plan
+        svc.run()
+        assert q.failed and q.error.kind == "invalid"
+        assert isinstance(q.error.cause, NotImplementedError)
+        assert "decomposition widths" in str(q.error)
+        assert svc.fault_counters["invalid"] == 1 and svc.fault_counters["deterministic"] == 0
+    assert isinstance(q.error.cause, BagPlanUnsupported)
+
+
+def test_bag_plan_rejection_never_trips_quarantine(group1, ref_mesh1):
+    from repro_torch.serve.resilience import QUARANTINE_STRIKES
+
+    _, svc = _services(group1, ref_mesh1)
+    errors = []
+    for _ in range(QUARANTINE_STRIKES + 1):
+        q = svc.submit("a", "triangle", iterations=8, seed=1)
+        svc.run()
+        errors.append(q.error)
+    assert all(e.kind == "invalid" for e in errors)
+    fs = svc._fail.get(errors[0].engine_key)
+    assert fs is None or (fs.strikes == 0 and fs.quarantines == 0)
+
+
+def test_mesh_collective_fault_fails_query_not_scheduler(group1, ref_mesh1):
+    """A deterministic ``collective`` fault fails the query and strikes the
+    key once; the next query is served with the reference's estimates."""
+    ref, got = _services(group1, ref_mesh1)
+    means = []
+    for svc, plan_cls, spec_cls in ((ref, RefFaultPlan, RefFaultSpec), (got, FaultPlan, FaultSpec)):
+        base = svc.query("a", "u3", iterations=8, seed=1)
+        with plan_cls([spec_cls(site="collective", kind="deterministic", max_fires=1)], seed=0):
+            q = svc.submit("a", "u3", iterations=8, seed=2)
+            svc.run()
+            assert q.failed and q.error.kind == "deterministic"
+            again = svc.submit("a", "u3", iterations=8, seed=1)
+            svc.run()
+            assert again.done
+            assert [e.mean for e in again.result()] == [e.mean for e in base]
+        means.append([e.mean for e in base])
+    np.testing.assert_allclose(means[1], means[0], rtol=RTOL)
+
+
+def test_local_backends_do_not_expose_the_collective_site():
+    svc = CountingService(device="cpu", chunk_size=4)
+    svc.register_graph("a", rmat_graph(240, 1200, seed=2))
+    with FaultPlan([FaultSpec(site="collective", kind="deterministic")], seed=0):
+        q = svc.submit("a", "u3", iterations=8, seed=1)
+        svc.run()
+    assert q.done
+
+
+def test_cost_model_prices_mesh_transient_as_the_reference(group1):
+    """The engine's per-shard transient follows the comm mode, as the
+    reference's: blocking prices the gathered buffer and all edge messages."""
+    g = rmat_graph(240, 1200, seed=5)
+    eng = CountingEngine(g, [get_template("u7")], device="cpu", mesh=group1, column_batch=8)
+    sh = eng.backend_impl.sharded
+    cm = CostModel(eng.plan_ir, g)
+    assert eng.backend_impl.transient_elements() == cm.mesh_transient_elements(
+        sh.n_padded, sh.edges_per_shard, 8)
+    assert eng.backend_impl.resident_elements() == sh.rows_per_shard * eng.plan_ir.padded_peak_columns(8)
+
+
+def test_row_blocked_index_add_is_bitwise_the_same(group1, monkeypatch):
+    """The streamed eMA's scatter splits ``M_s`` into row blocks past
+    ``INDEX_ADD_ELEMENTS`` (the card's 32-bit index limit); forcing tiny
+    blocks here changes no bit of the totals."""
+    from repro_torch.core import distributed
+
+    g = rmat_graph(240, 1200, seed=5)
+    colors = np.random.default_rng(3).integers(0, 7, size=g.n)
+
+    def raw():
+        eng = CountingEngine(g, [get_template("u7")], device="cpu", mesh=group1, column_batch=8)
+        return eng.raw_counts(colors).numpy()
+
+    whole = raw()
+    monkeypatch.setattr(distributed, "INDEX_ADD_ELEMENTS", 1000)
+    np.testing.assert_array_equal(raw(), whole)

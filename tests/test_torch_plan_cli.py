@@ -7,7 +7,7 @@ peak) must be the same text, and the cost verdict (backend, dtype, bytes
 per coloring, fusion slack, picked chunk) the same numbers, with the
 reference's fusion slack pinned to 1.0, the port's on the CPU.  Only the
 wording of the backend heuristic's reason may differ.  ``--mesh-shards``
-raises, naming the mesh slice.
+prints the mesh comm model's verdict, equal to the reference's.
 """
 
 import contextlib
@@ -19,8 +19,10 @@ import torch
 import repro.plan.cost as ref_cost
 from repro.plan.__main__ import main as ref_main
 
+from repro_torch.core import templates as port_templates
 from repro_torch.plan import cost
 from repro_torch.plan.__main__ import main as port_main
+from repro_torch.plan.ir import build_template_plan
 
 CASES = {
     "u6": ["u6"],
@@ -63,9 +65,20 @@ def test_inspector_prints_the_reference_plan_and_cost(case):
         assert any("fusion slack 1.0000" in line for line in got)
 
 
-def test_inspector_mesh_shards_waits_for_the_mesh_slice():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_main(["u6", "--graph", "rmat:300:1500:2", "--mesh-shards", "4", "--device", "cpu"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_inspector_mesh_shards_waits_for_the_mesh_slice(shards):
+    """The mesh slice is ported: ``--mesh-shards`` prints the comm model's
+    per-stage verdict, line for line the reference's (and, like the
+    reference's, needs ``--graph``)."""
+    argv = ["u6", "--graph", "rmat:300:1500:2", "--mesh-shards", str(shards)]
+    want = _run(ref_main, argv)
+    got = _run(port_main, argv + ["--device", "cpu"])
+    start = want.index(next(line for line in want if line.startswith("Mesh comm schedule")))
+    assert got[start - 1:] == want[start - 1:]
+    assert len(want) - start == 2 + len(build_template_plan([port_templates.get_template("u6")])
+                                         .exec_groups)
+    with pytest.raises(SystemExit):
+        _run(port_main, ["u6", "--mesh-shards", "4", "--device", "cpu"])
 
 
 def test_inspector_runs_on_the_card_unless_told_otherwise():

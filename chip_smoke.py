@@ -114,6 +114,34 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``forward``, then 8 requests with prompts of 16-512 tokens, each of
    which must finish with its 16 tokens; 4 more run under
    ``torch.profiler``.
+8b. MLA and fine-grained MoE (``[mla_moe]``), once granite-8b's weights
+   are freed: deepseek-v2-lite-16b at full width and depth (27 layers,
+   15.71 B parameters, 62.8 GB of seeded fp32 weights).  Gates: its first
+   MoE layer's ``moe_apply`` in fp32 on 384 tokens at the published
+   capacity (some pairs must drop) within ``MOE_RTOL`` of the plain
+   per-expert loop (``repro_torch.testing.moe``) under the same routing;
+   a 64-token prefill on 2 rows and one absorbed ``decode_step`` within
+   ``rtol=2e-2, atol=2e-4`` of ``forward`` on the 65 tokens (fp32, no
+   drops); then the bf16 forward at b=4, s=4096 and capacity factor 1.25,
+   finite.  Records ms, tokens/s, peak memory and a ``torch.profiler``
+   split (products, MoE dispatch, attention: n_layers times one layer's
+   ``_sdpa_chunked`` profiled alone, and the rest).
+8c. ``ServeEngine`` over the same weights (``[serve_mla]``), fp32 at
+   ``capacity_factor = n_experts``, as phase 8: prefill on the
+   decompressed path, decode on the absorbed one over the latent cache.
+8d. DBRX (``[dbrx]``): kernel C against its plain version at DBRX's heads
+   (b=4, s=4096, h=48, h_kv=8, d=128, bf16, causal) beside
+   ``F.scaled_dot_product_attention``; then dbrx-132b at full width cut to
+   2 of its 40 layers (7.75 B parameters, 31.0 GB fp32), ``forward`` with
+   ``attn_impl="flash"`` as phase 7: the fp32 flash-vs-sdpa logits gate
+   with no tensor-core launch, then the bf16 forward at b=4, s=4096 with
+   exactly 2 tensor-core launches.
+8e. Expert parallelism (``[moe_ep]``): one full-width DBRX MoE layer in
+   bf16 on 2048 tokens at the published capacity (some pairs must drop),
+   in one NCCL rank spawned by ``run_ranks``: ``moe_apply(...,
+   group=WORLD)`` on the rank's share of the experts must equal the dense
+   ``moe_apply`` bitwise.  The exchange between ranks is held by the CPU
+   tests (2 and 4 gloo ranks); a card takes one NCCL rank.
 9. Kernel A's wide path at full width (``[wide]``), once the LM weights
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
@@ -286,6 +314,25 @@ LOGITS_RTOL = 5e-5
 
 # [mesh]: the whole spawned group's wall-clock limit, and each collective's
 MESH_TIMEOUT_S = 600.0
+
+#: [mla_moe]: the MoE gate's tokens (b, s) of one full-width layer, at the
+#: published capacity, against the plain per-expert loop in fp32: relative
+#: max-abs, the logits gate's bar (both sum the same fp32 products, in other
+#: orders and batchings).
+MOE_GATE_TOKENS = (2, 192)
+MOE_RTOL = LOGITS_RTOL
+#: [mla_moe]: prefill of MLA_PROMPT tokens on MLA_ROWS rows, then one
+#: absorbed decode step, against the 65-token forward at the reference's
+#: decode-vs-forward bar (tests/test_arch_smoke.py).
+MLA_ROWS, MLA_PROMPT = 2, 64
+MLA_RTOL, MLA_ATOL = 2e-2, 2e-4
+#: [dbrx]: layers kept of DBRX's 40 (526 GB of fp32 weights at 40).
+DBRX_LAYERS = 2
+#: [moe_ep]: tokens (b, s) of the full-width DBRX MoE layer and the seed of
+#: its weights and tokens.
+EP_TOKENS = (4, 512)
+EP_SEED = 4
+EP_TIMEOUT_S = 600.0
 
 
 def log(*args) -> None:
@@ -1340,10 +1387,23 @@ def lm_kernel_kind(name: str) -> str:
     return "rest"
 
 
-def lm_forward(cfg, device, reps=2):
-    """granite-8b forward at full width and depth: the fp32 flash-vs-sdpa
-    gate, then the bf16 forward (the config's dtype) as the main path.
-    Returns the record and the parameters (phase 8 reuses them)."""
+def moe_kernel_kind(name: str) -> str:
+    """:func:`lm_kernel_kind`, with the MoE dispatch apart: the router's sort
+    (top-k), the queue positions' scan and gather, the scatter into expert
+    rows and the gather back (the embedding lookup's gather is counted
+    here too; it is 0.1 GB of a forward's reads)."""
+    kind = lm_kernel_kind(name)
+    low = name.lower()
+    if kind == "rest" and any(t in low for t in ("sort", "scan", "index", "gather", "scatter")):
+        return "moe_dispatch"
+    return kind
+
+
+def lm_forward(cfg, device, reps=2, tag="lm", classify=None):
+    """A GQA config's forward at full width (granite-8b: and depth; phase 8d
+    runs DBRX's cut to 2 layers): the fp32 flash-vs-sdpa gate, then the
+    bf16 forward (the config's dtype) as the main path.  Returns the record
+    and the parameters (phase 8 reuses them)."""
     import numpy as np
     import torch
 
@@ -1396,7 +1456,7 @@ def lm_forward(cfg, device, reps=2):
     ms = time_ms(lambda: T.forward(params, cfg16, tokens), reps)
     peak = torch.cuda.max_memory_allocated()
     profile = device_profile(lambda: (T.forward(params, cfg16, tokens),
-                                      torch.cuda.synchronize()), lm_kernel_kind)
+                                      torch.cuda.synchronize()), classify or lm_kernel_kind)
     out = {
         "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "param_count": cfg.param_count(),
@@ -1412,7 +1472,7 @@ def lm_forward(cfg, device, reps=2):
         "bf16_max_memory_allocated": peak,
         "profile": profile,
     }
-    log(f"[lm] {json.dumps(out)}")
+    log(f"[{tag}] {json.dumps(out)}")
     return out, params, cfg32
 
 
@@ -1421,7 +1481,7 @@ def lm_forward(cfg, device, reps=2):
 # ---------------------------------------------------------------------------
 
 
-def serve(cfg32, params, device) -> dict:
+def serve(cfg32, params, device, tag="serve", classify=None) -> dict:
     import numpy as np
     import torch
 
@@ -1459,7 +1519,7 @@ def serve(cfg32, params, device) -> dict:
     # while serving (kept out of the numbers above)
     more = [Request(uid=200 + i, prompt=rng.integers(0, cfg32.vocab_size, 64).astype(np.int32),
                     max_new_tokens=SERVE_NEW) for i in range(4)]
-    profile = device_profile(lambda: engine.run(more), lm_kernel_kind)
+    profile = device_profile(lambda: engine.run(more), classify or lm_kernel_kind)
     out = {
         "slots": SERVE_SLOTS, "max_len": SERVE_LEN, "dtype": cfg32.dtype,
         "requests": len(equal) + len(mixed),
@@ -1472,7 +1532,208 @@ def serve(cfg32, params, device) -> dict:
         "greedy_match": True,
         "profile_of_4_more_requests": profile,
     }
-    log(f"[serve] {json.dumps(out)}")
+    log(f"[{tag}] {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8b-8e: MLA and MoE (deepseek-v2-lite-16b, dbrx-132b)
+# ---------------------------------------------------------------------------
+
+
+def skewed_tokens(shape, d, gen, device, dtype):
+    """Normal activations plus one direction every token shares, so that
+    they favour the same experts and some overflow their capacity."""
+    import torch
+
+    x = torch.randn(shape + (d,), generator=gen, device=device)
+    return (x + 1.5 * torch.randn((d,), generator=gen, device=device)).to(dtype)
+
+
+def moe_gate(moe, cfg32, device) -> dict:
+    """One MoE layer in fp32 at the published capacity against the plain
+    per-expert loop (``repro_torch.testing.moe``) on the card, both under
+    the routing of one ``moe_route`` call."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.testing.moe import moe_loop
+
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = skewed_tokens(MOE_GATE_TOKENS, cfg32.d_model, gen, device, torch.float32)
+    got, aux = L.moe_apply(moe, cfg32, x)
+    _, gates, experts = L.moe_route(moe["router"], x.reshape(-1, cfg32.d_model), cfg32.moe_top_k)
+    want, dropped = moe_loop(moe, cfg32, x, gates, experts)
+    scale = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    if not (diff <= MOE_RTOL * scale) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"moe_apply vs the per-expert loop: max |diff| {diff:g} > "
+                             f"{MOE_RTOL} x max |out| {scale:g}")
+    if dropped == 0:
+        raise AssertionError("the MoE gate dropped no pair: capacity was not exercised")
+    return {"tokens": MOE_GATE_TOKENS[0] * MOE_GATE_TOKENS[1], "dropped_pairs": dropped,
+            "max_abs_diff": diff, "max_abs_out": scale, "aux": float(aux)}
+
+
+def mla_gate(params, cfg32, device) -> dict:
+    """Prefill of ``MLA_PROMPT`` tokens (decompressed path) and one
+    ``decode_step`` (absorbed path) against ``forward`` on the whole
+    sequence, in fp32 with no capacity drops."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(cfg32, capacity_factor=float(cfg32.n_experts))
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(MLA_ROWS, MLA_PROMPT)), device=device)
+    caches = T.init_kv_cache(cfg, MLA_ROWS, 2 * MLA_PROMPT, device=device)
+    lg, caches = T.prefill(params, cfg, tokens, caches)
+    nxt = lg[:, -1].argmax(-1)[:, None]
+    got, _ = T.decode_step(params, cfg, nxt, caches, MLA_PROMPT)
+    full, _, _ = T.forward(params, cfg, torch.cat([tokens, nxt], 1))
+    err = max_abs_err(got, full[:, -1], MLA_RTOL, "MLA absorbed decode vs forward", atol=MLA_ATOL)
+    return {"rows": MLA_ROWS, "prompt": MLA_PROMPT, "max_abs_err": err,
+            "max_abs_logit": float(full[:, -1].abs().max()),
+            "cache_bytes_per_token_layer": 4 * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)}
+
+
+def attention_split(profile, core, n_layers) -> dict:
+    """The forward's device time by kind with the attention core apart:
+    ``core`` is the profile of one layer's ``_sdpa_chunked`` at the
+    forward's shapes, whose kernels (batched products, masks, softmax) the
+    forward's split counts under products and the rest; ``n_layers`` times
+    its split moves to ``attention``."""
+    split = dict(profile["split_ms"])
+    for kind, ms in core["split_ms"].items():
+        split[kind] = split.get(kind, 0.0) - n_layers * ms
+    split["attention"] = n_layers * sum(core["split_ms"].values())
+    return split
+
+
+def mla_moe_path(cfg, device, reps=2):
+    """Phase 8b: deepseek-v2-lite-16b at full width and depth, seeded random
+    fp32 weights.  The MoE gate on its first MoE layer, the MLA gate, then
+    the bf16 forward at b=4, s=4096 as the main path.  Returns the record,
+    the parameters and the fp32 config ([serve_mla] reuses them)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg32, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    moe = T._map(lambda p: p[0], params["groups"][1]["moe"])
+    moe_rec = moe_gate(moe, cfg32, device)
+    mla_rec = mla_gate(params, cfg32, device)
+
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(LM_BATCH, LM_SEQ)), device=device)
+    logits, aux, _ = T.forward(params, cfg, tokens)
+    if logits.shape != (LM_BATCH, LM_SEQ, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bf16 logits {tuple(logits.shape)} are not finite or misshapen")
+    del logits
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: T.forward(params, cfg, tokens), reps)
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(lambda: (T.forward(params, cfg, tokens), torch.cuda.synchronize()),
+                             moe_kernel_kind)
+
+    # one layer's attention core at the forward's shapes, for the split
+    gen = torch.Generator(device=device).manual_seed(5)
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    q, k = (torch.randn((LM_BATCH, LM_SEQ, cfg.n_heads, qk), generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((LM_BATCH, LM_SEQ, cfg.n_heads, cfg.v_head_dim), generator=gen,
+                    device=device).to(torch.bfloat16)
+    pos = torch.arange(LM_SEQ, device=device)
+
+    def core():
+        return L._sdpa_chunked(q, k, v, pos, None, causal=True, q_chunk=cfg.attn_q_chunk)
+
+    core_ms = time_ms(core, reps)
+    core_profile = device_profile(lambda: (core(), torch.cuda.synchronize()), moe_kernel_kind)
+    del q, k, v
+    out = {
+        "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "param_count": cfg.param_count(), "capacity_factor": cfg.capacity_factor,
+        "capacity_per_expert": max(int(LM_BATCH * LM_SEQ * cfg.moe_top_k * cfg.capacity_factor
+                                       / cfg.n_experts), 4),
+        "batch": LM_BATCH, "seq": LM_SEQ, "init_params_s": init_s,
+        "moe_gate": moe_rec, "mla_gate": mla_rec, "bf16_aux": float(aux),
+        "bf16_forward_ms": ms,
+        "bf16_tokens_per_s": LM_BATCH * LM_SEQ / (ms / 1e3),
+        "bf16_max_memory_allocated": peak,
+        "attention_core_ms_per_layer": core_ms,
+        "split_ms": attention_split(profile, core_profile, cfg.n_layers),
+        "profile": profile,
+    }
+    log(f"[mla_moe] {json.dumps(out)}")
+    return out, params, cfg32
+
+
+def moe_ep_rank(rank, world, cfg, tokens_shape, seed, device_type) -> dict:
+    """One rank of ``[moe_ep]`` (runs in a process ``run_ranks`` spawned):
+    the whole layer and every rank's tokens from ``seed``, then this rank's
+    tokens through the dense path and through the expert-parallel path
+    with its share of the experts."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import layers as L
+
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" \
+        else torch.device("cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = L.init_moe(gen, cfg, device)
+    x = skewed_tokens(tokens_shape, cfg.d_model, gen, device, getattr(torch, cfg.dtype))
+    x = x.chunk(world)[rank]
+    shard = L.moe_shard(params, rank, world)
+    dense, dense_aux = L.moe_apply(params, cfg, x)
+    ep, ep_aux = L.moe_apply(shard, cfg, x, group=dist.group.WORLD)
+    _, _, experts = L.moe_route(params["router"], x.reshape(-1, cfg.d_model), cfg.moe_top_k)
+    counts = torch.bincount(experts.reshape(-1), minlength=cfg.n_experts)
+    capacity = max(int(experts.numel() * cfg.capacity_factor / cfg.n_experts), 4)
+    out = {
+        "rank": rank, "world": world, "backend": dist.get_backend(),
+        "tokens": x.shape[0] * x.shape[1], "dtype": cfg.dtype, "capacity": capacity,
+        "dropped_pairs": int((counts - capacity).clamp_min(0).sum()),
+        "bitwise_equal": bool(torch.equal(ep, dense)) and float(ep_aux) == float(dense_aux),
+        "max_abs_diff": float((ep.float() - dense.float()).abs().max()),
+        "aux": float(ep_aux),
+    }
+    if device_type == "cuda":
+        out["dense_ms"] = time_ms(lambda: L.moe_apply(params, cfg, x), 3)
+        out["ep_ms"] = time_ms(lambda: L.moe_apply(shard, cfg, x, group=dist.group.WORLD), 3)
+    return out
+
+
+def moe_ep_path(cfg, device) -> dict:
+    """Phase 8e: one full-width MoE layer of ``cfg`` through the
+    expert-parallel path at one NCCL rank (one gloo rank on the CPU, for
+    rehearsals), held bitwise against the dense path on the same tokens (at
+    one rank the two run the same products on the same rows; the exchange
+    is two copies)."""
+    import torch
+
+    from repro_torch.testing.ranks import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(moe_ep_rank, 1, args=(cfg, EP_TOKENS, EP_SEED, device.type),
+                      backend="nccl" if device.type == "cuda" else "gloo", timeout_s=EP_TIMEOUT_S)
+    out = dict(ranks[0], group_wall_s=time.perf_counter() - t0, config=cfg.name)
+    if not out["bitwise_equal"]:
+        raise AssertionError(f"[moe_ep] EP differs from the dense path: max |diff| "
+                             f"{out['max_abs_diff']:g}")
+    if out["dropped_pairs"] == 0:
+        raise AssertionError("[moe_ep] no pair dropped: capacity was not exercised")
+    log(f"[moe_ep] {json.dumps(out)}")
     return out
 
 
@@ -2024,6 +2285,22 @@ def run(args, device) -> int:
     torch.cuda.empty_cache()
     log(f"[time] LM phases done at {time.perf_counter() - t_start:.1f} s")
 
+    from repro_torch.configs.dbrx_132b import CONFIG as DBRX_CONFIG
+    from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as MLA_CONFIG
+
+    mla, params, mla32 = mla_moe_path(MLA_CONFIG, device)
+    mla_served = serve(dataclasses.replace(mla32, capacity_factor=float(mla32.n_experts)),
+                       params, device, tag="serve_mla", classify=moe_kernel_kind)
+    del params
+    torch.cuda.empty_cache()
+    dbrx_flash_rows = check_flash(DBRX_CONFIG, FLASH_SHAPES[:1], device)
+    dbrx, params, _ = lm_forward(dataclasses.replace(DBRX_CONFIG, n_layers=DBRX_LAYERS), device,
+                                 tag="dbrx", classify=moe_kernel_kind)
+    del params
+    torch.cuda.empty_cache()
+    moe_ep = moe_ep_path(DBRX_CONFIG, device)
+    log(f"[time] MLA and MoE phases done at {time.perf_counter() - t_start:.1f} s")
+
     # the LM weights and every earlier engine are freed: the wide cells'
     # 41.7 and 46.4 GB of DP state fit beside nothing else
     wide, wide_memory = wide_path(device, MEMORY_BUDGET_BYTES)
@@ -2070,15 +2347,18 @@ def run(args, device) -> int:
                              "service": served["launches"]["spmm_blocked"],
                              "tune": tuned["launches"]["spmm_blocked"],
                              "frontend": front["launches"]["spmm_blocked"]}),
-        # times: one launch at the forward's shape (b=4, s=4096), which the
-        # bf16 forward launches once per layer (the fp32 gate forward runs
-        # flash_attention.cu, checked by the logits gate)
+        # times: one launch at granite-8b's forward shape (b=4, s=4096),
+        # which the bf16 forward launches once per layer (the fp32 gate
+        # forward runs flash_attention.cu, checked by the logits gate); the
+        # DBRX-shape row (h=48, h_kv=8) is in "shapes"
         dict(kernel_record(
             "flash_attention", "lm",
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention/kernel.py:30",
-            lm["launches"]["flash_attention"], flash_rows, timed=flash_rows[:1],
+            lm["launches"]["flash_attention"], flash_rows + dbrx_flash_rows, timed=flash_rows[:1],
         ), tensor_core_launches=lm["launches"]["flash_attention_tensor_core"],
+            launches_by_path={"lm": lm["launches"]["flash_attention"],
+                              "dbrx": dbrx["launches"]["flash_attention"]},
             fp32_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -2089,6 +2369,7 @@ def run(args, device) -> int:
              "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
+             "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,
              "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
             indent=1))
     print(card, flush=True)

@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM: the dense-GQA inference path of the port.
+"""Decoder-only transformer LM: the inference path of the port.
 
-Covers the GQA / MQA archs (granite-8b, granite-20b, nemotron-4-15b):
-RMSNorm, RoPE, dense SwiGLU / GELU / squared-ReLU feed-forward, the
-cache-free forward (whose attention is the flash kernel when
-``cfg.attn_impl == "flash"``) and KV-cache prefill / decode.  MLA and MoE
-(ROADMAP queue 1 item 13), ``loss_fn`` (item 14) and the mesh partition
-specs (item 11) are not ported.
+Covers the five LM archs of the reference: GQA / MQA (granite-8b,
+granite-20b, nemotron-4-15b, dbrx-132b) and DeepSeek-V2 MLA
+(deepseek-v2-lite-16b); dense SwiGLU / GELU / squared-ReLU and top-k MoE
+feed-forward (dbrx-132b, deepseek-v2-lite-16b after its dense first
+layer); the cache-free forward (whose GQA attention is the flash kernel
+when ``cfg.attn_impl == "flash"``) and cache prefill / decode.
+``loss_fn`` and the pjit partition specs (ROADMAP queue 1 item 14) are
+not ported.
 
 Parameters keep the reference's layout: a dict with ``embed``,
 ``final_norm``, ``unembed`` and ``groups``, a list with one dict per
@@ -65,14 +67,16 @@ def _zip_map(fn, a, b):
 
 
 def _init_layer(gen, cfg: LMConfig, moe: bool, device: torch.device) -> Params:
-    if moe:
-        raise NotImplementedError(f"the MoE feed-forward {L._NOT_PORTED}")
-    return {
+    layer = {
         "attn_norm": torch.ones((cfg.d_model,), device=device),
         "ffn_norm": torch.ones((cfg.d_model,), device=device),
         "attn": L.init_attention(gen, cfg, device),
-        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, device),
     }
+    if moe:
+        layer["moe"] = L.init_moe(gen, cfg, device)
+    else:
+        layer["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_activation, device)
+    return layer
 
 
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Params:
@@ -136,8 +140,9 @@ def forward(
     return_hidden: bool = False,
 ):
     """Returns (logits, aux_loss, caches); the final hidden states instead of
-    logits when ``return_hidden``.  With ``caches``, the new keys and values
-    are written into them in place at ``cache_index``."""
+    logits when ``return_hidden``.  aux_loss sums the MoE layers' router
+    losses.  With ``caches``, the new keys and values (MLA: latents) are
+    written into them in place at ``cache_index``."""
     dtype = getattr(torch, cfg.dtype)
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device).long()
@@ -170,7 +175,10 @@ def forward(
 
 def _cache_layer_shape(cfg: LMConfig, batch: int, max_len: int):
     if cfg.attention == "mla":
-        raise NotImplementedError(f"the MLA cache {L._NOT_PORTED}")
+        return {
+            "c_kv": (batch, max_len, cfg.kv_lora_rank),
+            "k_rope": (batch, max_len, cfg.qk_rope_head_dim),
+        }
     return {
         "k": (batch, max_len, cfg.n_kv_heads, cfg.d_head),
         "v": (batch, max_len, cfg.n_kv_heads, cfg.d_head),
@@ -178,8 +186,10 @@ def _cache_layer_shape(cfg: LMConfig, batch: int, max_len: int):
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None) -> list:
-    """Zeroed caches, one dict per layer group: ``(n_layers, batch, max_len,
-    h_kv, d_head)`` tensors in ``dtype`` (default ``cfg.dtype``)."""
+    """Zeroed caches, one dict per layer group, in ``dtype`` (default
+    ``cfg.dtype``): ``k`` and ``v`` of ``(n_layers, batch, max_len, h_kv,
+    d_head)``, or for MLA the latent ``c_kv`` of ``(n_layers, batch,
+    max_len, kv_lora_rank)`` and ``k_rope`` of ``(..., qk_rope_head_dim)``."""
     dtype = dtype or getattr(torch, cfg.dtype)
     device = resolve_device(device)
     shapes = _cache_layer_shape(cfg, batch, max_len)

@@ -207,3 +207,24 @@ def all_cases(rank, world):
         "count_fn": count_fn_cases(rank, world),
         "service": service_cases(rank, world),
     }
+
+
+def moe_ep_cases(rank, world, cases):
+    """``tests/test_torch_moe.py``'s expert-parallel cases: for each ``(arch,
+    capacity_factor, params, x)`` of numpy arrays (the whole layer and every
+    rank's tokens, split over ranks on the batch axis), this rank's
+    ``moe_apply(..., group=WORLD)`` on its tokens with its experts."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.layers import moe_apply, moe_shard
+
+    out = []
+    for arch, capacity_factor, params_np, x_np in cases:
+        cfg = dataclasses.replace(get_arch(arch)[1].SMOKE_CONFIG, capacity_factor=capacity_factor)
+        params = {k: ({n: torch.as_tensor(a) for n, a in v.items()} if isinstance(v, dict)
+                      else torch.as_tensor(v)) for k, v in params_np.items()}
+        x = torch.as_tensor(np.array_split(x_np, world, axis=0)[rank])
+        got, aux = moe_apply(moe_shard(params, rank, world), cfg, x, group=dist.group.WORLD)
+        out.append((got.numpy(), float(aux)))
+    return out

@@ -142,6 +142,27 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    group=WORLD)`` on the rank's share of the experts must equal the dense
    ``moe_apply`` bitwise.  The exchange between ranks is held by the CPU
    tests (2 and 4 gloo ranks); a card takes one NCCL rank.
+8f. Training (``[train]``), once the MoE weights are freed; TF32 off, as
+   in every phase.  The fp32 gates at granite-8b's full width cut to 2
+   layers, on one ``token_batches`` batch of b=1 x s=512: ``loss_fn`` and
+   every gradient leaf on the card against the same step on the CPU (the
+   port's plain path; max |dg| / max |g| <= 1e-4 per leaf, the loss within
+   1e-5), remat on against off (bitwise), ``loss_chunk=128`` against the
+   whole loss (1e-5 relative), and ``attn_impl="flash"``: the forward
+   launches kernel C once per layer, the backward raises
+   ``NotImplementedError``.  The restart gate: ``TrainLoop`` over
+   ``make_lm_job`` on granite-8b's ``SMOKE_CONFIG`` on the card, 20 steps
+   with a checkpoint every 5, straight and with a fault at step 13 and a
+   resume from step 10, equal bit for bit.  Then the run: granite-8b at
+   full width cut to 12 of 36 layers (3.02 B parameters; parameters,
+   gradients and AdamW moments 48.3 GB in fp32), bf16 compute, remat,
+   ``attn_impl="sdpa"``, b=2 x s=4096 from ``token_batches(seed=0)``
+   through ``make_lm_job`` and ``TrainLoop``: 2 warm-up steps and 6 timed
+   (CUDA events), ms per step, tokens/s, the model-FLOP share (6 N T over
+   989 TFLOP/s), peak memory, the loss per step, one step profiled and
+   split (bf16 products, the fp32 attention core, the loss head, the
+   optimizer, casts and copies, the rest), then 3 steps on one repeated
+   batch, whose loss must fall; every loss finite, no flash launch.
 9. Kernel A's wide path at full width (``[wide]``), once the LM weights
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
@@ -333,6 +354,28 @@ DBRX_LAYERS = 2
 EP_TOKENS = (4, 512)
 EP_SEED = 4
 EP_TIMEOUT_S = 600.0
+#: [train] fp32 gates (granite-8b at full width, TRAIN_GATE_LAYERS layers,
+#: one batch of TRAIN_GATE_TOKENS): card vs CPU, each gradient leaf's max
+#: |diff| over its max |g| (the two sum fp32 in other orders; TF32 is off),
+#: the loss relative; the chunked loss against the whole one, the loss and
+#: each leaf relative.
+TRAIN_GATE_LAYERS = 2
+TRAIN_GATE_TOKENS = (1, 512)
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_CHUNK = 128
+#: [train] the restart gate on granite-8b's SMOKE_CONFIG: (batch, seq) and
+#: the loop's steps, checkpoint interval and injected fault.
+TRAIN_RESTART_TOKENS = (8, 128)
+TRAIN_RESTART_STEPS, TRAIN_RESTART_EVERY, TRAIN_RESTART_FAULT = 20, 5, 13
+#: [train] the bf16 run: granite-8b at full width cut to TRAIN_LAYERS of 36
+#: layers (48.3 GB of fp32 parameters, gradients and AdamW moments; all 36
+#: take 132.1 GB), b x s tokens per step, warm-up, timed and repeated-batch
+#: steps, the launcher's constant learning rate.
+TRAIN_LAYERS = 12
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_WARMUP, TRAIN_TIMED, TRAIN_REPEAT = 2, 6, 3
+TRAIN_LR = 3e-4
 
 
 def log(*args) -> None:
@@ -1738,6 +1781,322 @@ def moe_ep_path(cfg, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8f: training (granite-8b at full width)
+# ---------------------------------------------------------------------------
+
+
+def train_kernel_kind(name: str) -> str:
+    """fp32 products (cuBLAS's ``f32f32`` and CUTLASS's ``sgemm`` kernels:
+    the attention core, with TF32 off), the other products (bf16), casts
+    and copies, and every other kernel."""
+    low = name.lower()
+    if lm_kernel_kind(name) == "cublas_products":
+        return "fp32_products" if ("sgemm" in low or "f32f32_f32f32" in low) else "bf16_products"
+    return "casts_and_copies" if "copy" in low else "rest"
+
+
+def train_grads(params, cfg, tokens, labels, loss_chunk=0):
+    """``loss_fn`` and its backward from zeroed gradients; returns the loss
+    and the gradient leaves in ``jax.tree`` order."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = T.loss_fn(params, cfg, tokens, labels, loss_chunk=loss_chunk)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return loss.detach(), grads
+
+
+def leaf_errors(got, want) -> list:
+    """Per leaf: max |got - want| over max |want|."""
+    return [float((g.to(w.device) - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def train_gates(cfg, device) -> dict:
+    """The fp32 gates of ``[train]`` at ``cfg``'s width and
+    ``TRAIN_GATE_LAYERS`` layers on one ``token_batches`` batch: the card
+    against the CPU (the port's plain path), remat on against off, the
+    chunked loss against the whole one, and the flash path's forward
+    launching with its backward refused."""
+    import torch
+
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_GATE_LAYERS, dtype="float32", attn_impl="sdpa",
+                              remat=False)
+    params = T.init_params(cfg, seed=0, device=device)
+    tokens, labels = next(token_batches(cfg, *TRAIN_GATE_TOKENS, seed=0, device=device))
+    out = {"config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "parameters": sum(p.numel() for p in tree_leaves(params)),
+           "tokens": list(TRAIN_GATE_TOKENS)}
+
+    t0 = time.perf_counter()
+    loss, grads = train_grads(params, cfg, tokens, labels)
+    torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = train_grads(tree_map(lambda p: p.detach().to(cpu), params), cfg,
+                                      tokens.to(cpu), labels.to(cpu))
+    out["cpu_s"] = time.perf_counter() - t0
+    errs = leaf_errors(grads, cpu_grads)
+    out["card_vs_cpu_loss"] = [float(loss), float(cpu_loss)]
+    out["card_vs_cpu_worst_leaf"] = max(errs)
+    del cpu_grads
+    if abs(float(loss) - float(cpu_loss)) > TRAIN_LOSS_RTOL * abs(float(cpu_loss)) or \
+            max(errs) > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"[train] card vs CPU: loss {float(loss)} vs {float(cpu_loss)}, "
+                             f"worst leaf max |dg| / max |g| {max(errs):g} > {TRAIN_GRAD_RTOL}")
+    log(f"[time] [train] card-vs-CPU gate: card {out['card_s']:.1f} s, CPU {out['cpu_s']:.1f} s")
+
+    remat_loss, remat_grads = train_grads(params, dataclasses.replace(cfg, remat=True), tokens,
+                                          labels)
+    out["remat_bitwise"] = bool(torch.equal(remat_loss, loss)) and all(
+        torch.equal(g, h) for g, h in zip(remat_grads, grads))
+    out["remat_worst_leaf"] = max(leaf_errors(remat_grads, grads))
+    del remat_grads
+    if not out["remat_bitwise"]:
+        raise AssertionError(f"[train] remat changed the gradients: worst leaf "
+                             f"{out['remat_worst_leaf']:g}")
+
+    chunk_loss, chunk_grads = train_grads(params, cfg, tokens, labels, loss_chunk=TRAIN_CHUNK)
+    out["chunked_loss_rel"] = abs(float(chunk_loss) - float(loss)) / abs(float(loss))
+    out["chunked_worst_leaf"] = max(leaf_errors(chunk_grads, grads))
+    del chunk_grads, grads
+    if max(out["chunked_loss_rel"], out["chunked_worst_leaf"]) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"[train] loss_chunk={TRAIN_CHUNK} vs whole: loss {out['chunked_loss_rel']:g}, "
+                             f"worst leaf {out['chunked_worst_leaf']:g} > {TRAIN_LOSS_RTOL}")
+
+    flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
+    flash_loss = T.loss_fn(params, dataclasses.replace(cfg, attn_impl="flash"), tokens, labels)
+    out["flash_refusal_launches"] = flash_attention.launches
+    out["flash_refusal_tensor_core_launches"] = flash_attention.tensor_core_launches
+    out["flash_loss"] = float(flash_loss.detach())
+    try:
+        flash_loss.backward()
+        out["flash_backward_refused"] = False
+    except NotImplementedError:
+        out["flash_backward_refused"] = True
+    if not out["flash_backward_refused"] or out["flash_refusal_launches"] != cfg.n_layers:
+        raise AssertionError(f"[train] flash path: backward refused {out['flash_backward_refused']}, "
+                             f"{out['flash_refusal_launches']} launches (want {cfg.n_layers})")
+    del params, flash_loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def restart_gate(cfg, device) -> dict:
+    """``TrainLoop`` over ``make_lm_job`` on ``cfg``: ``TRAIN_RESTART_STEPS``
+    steps straight, and the same with a fault injected and a resume from the
+    last checkpoint; the two final states must be equal bit for bit."""
+    import torch
+
+    from repro_torch.launch.train import make_lm_job
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.tree import tree_leaves
+
+    steps, every, fault = TRAIN_RESTART_STEPS, TRAIN_RESTART_EVERY, TRAIN_RESTART_FAULT
+
+    def job():
+        return make_lm_job(cfg, *TRAIN_RESTART_TOKENS, TRAIN_LR, device=device)
+
+    with tempfile.TemporaryDirectory() as d:
+        state, step, data = job()
+        straight = TrainLoop(LoopConfig(total_steps=steps, ckpt_dir=d, ckpt_every=every),
+                             step, data, state).run()
+    with tempfile.TemporaryDirectory() as d:
+        loop_cfg = LoopConfig(total_steps=steps, ckpt_dir=d, ckpt_every=every)
+        state, step, data = job()
+        loop = TrainLoop(loop_cfg, step, data, state)
+        loop.inject_fault_at(fault)
+        try:
+            loop.run()
+            raise AssertionError("[train] the injected fault did not stop the loop")
+        except RuntimeError as e:
+            if "injected fault" not in str(e):
+                raise
+        state, step, data = job()
+        loop = TrainLoop(loop_cfg, step, data, state)
+        restored = loop.try_restore()
+        resumed_from = loop.step
+        resumed = loop.run()
+    pairs = list(zip(tree_leaves(resumed), tree_leaves(straight)))
+    out = {"config": cfg.name, "steps": steps, "ckpt_every": every, "fault_at": fault,
+           "resumed_from": resumed_from,
+           "bitwise": restored and all(torch.equal(a, b) for a, b in pairs),
+           "worst_leaf": max(leaf_errors([a.detach() for a, _ in pairs],
+                                         [b.detach().float() for _, b in pairs]))}
+    if not out["bitwise"] or resumed_from != fault - fault % every:
+        raise AssertionError(f"[train] restart: resumed from {resumed_from}, bitwise "
+                             f"{out['bitwise']} (worst leaf {out['worst_leaf']:g})")
+    return out
+
+
+def train_split(cfg, state, step, batch, device) -> dict:
+    """Device time of one train step by kind: the step profiled whole, then
+    its parts profiled alone at the step's shapes and taken out of the
+    kinds they run: the fp32 attention core (one layer's ``_sdpa_chunked``
+    forward, and its forward and backward, which remat runs again; times
+    ``n_layers``), the loss head (unembedding, log-softmax, NLL and their
+    backward) and the optimizer (clipping and the AdamW update)."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw_update, clip_by_global_norm
+    from repro_torch.train.tree import tree_map
+
+    whole = device_profile(lambda: (step(state, batch), torch.cuda.synchronize()),
+                           train_kernel_kind)
+    b, s = batch[0].shape
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def leaf(shape):
+        return torch.randn(shape, generator=gen, device=device).to(dt).requires_grad_(True)
+
+    q = leaf((b, s, cfg.n_heads, cfg.d_head))
+    k, v = leaf((b, s, cfg.n_kv_heads, cfg.d_head)), leaf((b, s, cfg.n_kv_heads, cfg.d_head))
+    pos = torch.arange(s, device=device)
+
+    def core():
+        return L._sdpa_chunked(q, k, v, pos, None, causal=True, q_chunk=cfg.attn_q_chunk)
+
+    core_fwd = device_profile(lambda: (core(), torch.cuda.synchronize()), train_kernel_kind)
+    grad_out = torch.randn(q.shape, generator=gen, device=device).to(dt)
+    core_fb = device_profile(lambda: (core().backward(grad_out), torch.cuda.synchronize()),
+                             train_kernel_kind)
+    del q, k, v, grad_out
+    x = leaf((b, s, cfg.d_model))
+    unembed = state["params"]["unembed"]
+    loss = device_profile(lambda: (T._nll(x, unembed, batch[1]).mean().backward(),
+                                   torch.cuda.synchronize()), train_kernel_kind)
+    del x
+    params = state["params"]
+    grads = tree_map(lambda p: p.grad, params)
+    optimizer = device_profile(lambda: (adamw_update(clip_by_global_norm(grads, 1.0)[0],
+                                                     state["opt"], params, TRAIN_LR),
+                                        torch.cuda.synchronize()), train_kernel_kind)
+    parts = {"attention_core": (core_fwd, cfg.n_layers), "attention_core_backward": (core_fb, cfg.n_layers),
+             "loss": (loss, 1), "optimizer": (optimizer, 1)}
+    split = dict(whole["split_ms"])
+    out = {}
+    for name, (prof, times) in parts.items():
+        for kind, ms in prof["split_ms"].items():
+            split[kind] = split.get(kind, 0.0) - times * ms
+        out[name] = times * sum(prof["split_ms"].values())
+    out["attention_core"] += out.pop("attention_core_backward")
+    # what is left of each kind; fp32 products left over (~0) check that
+    # the core profiled alone is the step's
+    out.update(split)
+    return {"split_ms": out, "profile": whole,
+            "attention_core_ms_per_layer_profiled": (sum(core_fwd["split_ms"].values())
+                                                     + sum(core_fb["split_ms"].values()))}
+
+
+def train_run(cfg, device) -> dict:
+    """The bf16 run: ``make_lm_job`` through ``TrainLoop`` on ``token_batches
+    (seed=0)``, ``TRAIN_WARMUP`` steps then ``TRAIN_TIMED`` timed with CUDA
+    events, one step profiled and split, then ``TRAIN_REPEAT`` steps on one
+    repeated batch, whose loss must fall."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.train import make_lm_job
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+    from repro_torch.train.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    batch = TRAIN_BATCH
+    state, step, data = make_lm_job(cfg, batch, TRAIN_SEQ, TRAIN_LR, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    events = []
+
+    def timed_step(state, batch_data):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch_data)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    loop = TrainLoop(LoopConfig(total_steps=TRAIN_WARMUP + TRAIN_TIMED, log_every=1), timed_step,
+                     data, state)
+    state = loop.run()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [h["loss"] for h in loop.metrics_history]
+    peak = torch.cuda.max_memory_allocated()
+    ms = sum(step_ms[TRAIN_WARMUP:]) / TRAIN_TIMED
+    tokens = batch * TRAIN_SEQ
+    n_params = cfg.param_count()
+    model_flops = 6 * n_params * tokens
+    stream = data(TRAIN_WARMUP + TRAIN_TIMED)
+    split = train_split(cfg, state, step, next(stream), device)
+    repeated = next(stream)
+    repeat_losses = []
+    for _ in range(TRAIN_REPEAT):
+        state, metrics = step(state, repeated)
+        repeat_losses.append(float(metrics["loss"]))
+    out = {
+        "config": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+        "remat": cfg.remat, "attn_impl": cfg.attn_impl, "batch": batch, "seq": TRAIN_SEQ,
+        "param_count": n_params, "parameters": sum(p.numel() for p in tree_leaves(state["params"])),
+        "init_s": init_s, "step_ms": step_ms, "ms_per_step": ms,
+        "tokens_per_s": tokens / (ms / 1e3),
+        "model_flops_per_step": model_flops,
+        "model_flop_bound_ms": model_flops / PEAK_BF16_FLOPS * 1e3,
+        "model_flop_share": model_flops / PEAK_BF16_FLOPS / (ms / 1e3),
+        "host_step_s": loop._step_times, "max_memory_allocated": peak,
+        "losses": losses, "repeat_losses": repeat_losses,
+        "flash_launches": flash_attention.launches,
+        "device_idle_share": split["profile"]["device_idle_share"], **split,
+    }
+    if not all(math.isfinite(x) for x in losses + repeat_losses):
+        raise AssertionError(f"[train] a loss is not finite: {losses} {repeat_losses}")
+    if not repeat_losses[-1] < repeat_losses[0]:
+        raise AssertionError(f"[train] the loss did not fall on a repeated batch: {repeat_losses}")
+    if flash_attention.launches:
+        raise AssertionError(f"[train] the sdpa run launched flash_attention {flash_attention.launches} times")
+    return out
+
+
+def train_path(cfg, device) -> dict:
+    """Phase 8f (``[train]``): the fp32 gates at ``cfg``'s full width, the
+    restart gate on its ``SMOKE_CONFIG`` on the card, then the bf16 run at
+    full width cut to ``TRAIN_LAYERS`` layers."""
+    import torch
+
+    from repro_torch.configs.granite_8b import SMOKE_CONFIG
+
+    gates = train_gates(cfg, device)
+    log(f"[train] gates {json.dumps(gates)}")
+    restart = restart_gate(SMOKE_CONFIG, device)
+    log(f"[train] restart {json.dumps(restart)}")
+    run = train_run(dataclasses.replace(cfg, n_layers=TRAIN_LAYERS, attn_impl="sdpa"), device)
+    log(f"[train] run {json.dumps(run)}")
+    torch.cuda.empty_cache()
+    return {"gates": gates, "restart": restart, "run": run}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: kernel A's wide path at full width
 # ---------------------------------------------------------------------------
 
@@ -2300,6 +2659,8 @@ def run(args, device) -> int:
     torch.cuda.empty_cache()
     moe_ep = moe_ep_path(DBRX_CONFIG, device)
     log(f"[time] MLA and MoE phases done at {time.perf_counter() - t_start:.1f} s")
+    train = train_path(LM_CONFIG, device)
+    log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the LM weights and every earlier engine are freed: the wide cells'
     # 41.7 and 46.4 GB of DP state fit beside nothing else
@@ -2358,7 +2719,9 @@ def run(args, device) -> int:
             lm["launches"]["flash_attention"], flash_rows + dbrx_flash_rows, timed=flash_rows[:1],
         ), tensor_core_launches=lm["launches"]["flash_attention_tensor_core"],
             launches_by_path={"lm": lm["launches"]["flash_attention"],
-                              "dbrx": dbrx["launches"]["flash_attention"]},
+                              "dbrx": dbrx["launches"]["flash_attention"],
+                              "train": train["run"]["flash_launches"],
+                              "train_flash_refusal": train["gates"]["flash_refusal_launches"]},
             fp32_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -2370,7 +2733,7 @@ def run(args, device) -> int:
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
              "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,
-             "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
+             "train": train, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,5 @@
 """repro_torch: the PyTorch/CUDA port of the SubGraph2Vec counting system
-and of its dense-GQA LM inference path.
+and of its LM substrate (inference and single-device training).
 
 A package beside ``repro`` (the JAX reference, which it never imports).
 Module names follow the reference's, so each module's counterpart is easy

@@ -5,8 +5,8 @@ The LMs (dense GQA, MLA, MoE) and the paper's own workload
 reference's registry raises ``NotImplementedError`` naming the ROADMAP item
 that ports it; an id the reference does not know raises ``KeyError``.  The
 reference's shape grids (``SUBGRAPH_SHAPES``, ``shapes_for``,
-``all_cells``) serve its launch dry-run and come with ``launch/*`` (ROADMAP
-queue 1 item 14).
+``all_cells``) serve its launch dry-run and come with the launch tooling
+(ROADMAP queue 1 item 14b).
 """
 
 from __future__ import annotations

@@ -399,7 +399,7 @@ def make_batched_count_fn(
         ``"loop"`` (the paper's Algorithm 5: the batched SpMM into ``B``,
         then the eMA; ``B`` memoised per passive canonical form).  The
         reference's ``"vectorized"`` probe mode serves XLA's cost analysis
-        and waits for the launch tooling (ROADMAP queue 1 item 14).
+        and waits for the launch tooling (ROADMAP queue 1 item 14b).
       gather_dtype: wire dtype of the all-gather and the ring (e.g.
         ``torch.bfloat16``); accumulation stays fp32.
       canons / plan_ir: the DP schedule (canonical sharing and liveness);
@@ -432,7 +432,7 @@ def make_batched_count_fn(
     if ema_mode == "vectorized":
         raise NotImplementedError(
             "ema_mode='vectorized' is the reference's XLA cost-analysis probe "
-            "mode; it waits for the launch tooling (ROADMAP queue 1 item 14)"
+            "mode; it waits for the launch tooling (ROADMAP queue 1 item 14b)"
         )
     if ema_mode not in ("streamed", "loop"):
         raise ValueError(f"unknown ema_mode {ema_mode!r}")

@@ -17,6 +17,14 @@ the plain version
 runs.  Any other device, or a shape, dtype or layout the kernels do not
 take, raises.
 
+Both paths run inside one ``torch.autograd.Function`` whose backward
+raises ``NotImplementedError``: the reference's Pallas kernel has no
+gradient either (``jax.grad`` through it fails), and training uses
+``attn_impl="sdpa"``.  A forward with inputs that require grad works; a
+backward through it fails on the card and on the CPU alike, instead of
+leaving ``w_q``, ``w_k``, ``w_v`` and the residual path through attention
+without gradient.
+
 The kernels' tiles are fixed (bf16: 128 queries by 128 keys; fp32: 64 by
 64), so the reference's ``block_q`` / ``block_k`` (TPU tiling) and
 ``interpret`` have no counterpart here.
@@ -99,10 +107,31 @@ def flash_attention(
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward of either path; no backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "flash_attention has no backward: the reference's Pallas kernel has no "
+            "gradient either; train with attn_impl='sdpa'")
+
+
+def _launch(q, k, v, causal) -> torch.Tensor:
+    """One launch of the kernel of ``q``'s dtype on validated CUDA inputs."""
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out  # nothing to launch

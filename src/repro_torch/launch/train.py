@@ -1,0 +1,106 @@
+"""Training launcher CLI.
+
+Runs a real training job for a registered LM arch on one device, through
+the whole substrate: the config registry, the synthetic token stream,
+AdamW with global-norm clipping, checkpoint/restart and the straggler
+watchdog.  The train step is plain eager PyTorch: zero the gradients,
+``loss_fn``, ``backward``, clip, update in place.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --smoke \\
+      --steps 50 --batch 8 --seq-len 128 --ckpt-dir /tmp/ckpt [--device cpu]
+
+Without ``--device`` the job runs on the CUDA card and fails without one.
+The GNN and recsys families come with ROADMAP queue 1 item 15.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def make_lm_job(cfg, batch: int, seq_len: int, lr: float, device=None):
+    """``(state, train_step, data_factory)`` of an LM job on ``device``
+    (``None``: the card): ``state`` is ``{"params", "opt"}`` (fp32
+    parameters from ``init_params(cfg, seed=0)`` and their AdamW state),
+    ``train_step(state, (tokens, labels))`` returns ``(state, {"loss",
+    "gnorm"})`` with the state updated in place, and ``data_factory(step)``
+    is the token stream from ``step`` on.  A caller may put other
+    parameters into ``state`` (with ``adamw_init`` of them) before the
+    first step."""
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw_init, adamw_update, clip_by_global_norm
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    device = resolve_device(device)
+    params = T.init_params(cfg, seed=0, device=device)
+    state = {"params": params, "opt": adamw_init(params)}
+
+    def train_step(state, batch_data):
+        tokens, labels = batch_data
+        params = state["params"]
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        loss = T.loss_fn(params, cfg, tokens, labels)
+        loss.backward()
+        grads, gnorm = clip_by_global_norm(tree_map(lambda p: p.grad, params), 1.0)
+        params, opt = adamw_update(grads, state["opt"], params, lr)
+        return {"params": params, "opt": opt}, {"loss": loss.detach(), "gnorm": gnorm}
+
+    def data_factory(start_step):
+        return token_batches(cfg, batch, seq_len, seed=0, start_step=start_step, device=device)
+
+    return state, train_step, data_factory
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="use the reduced SMOKE_CONFIG")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--device", default=None, help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+
+    family, module = get_arch(args.arch)  # the GNN and recsys archs raise here
+    cfg = module.SMOKE_CONFIG if args.smoke else module.CONFIG
+    if family != "lm":
+        raise SystemExit(f"train launcher does not support family {family}")
+    state, step, data = make_lm_job(cfg, args.batch, args.seq_len, args.lr, device=args.device)
+
+    loop = TrainLoop(
+        LoopConfig(
+            total_steps=args.steps,
+            ckpt_dir=args.ckpt_dir,
+            ckpt_every=args.ckpt_every,
+            log_every=max(args.steps // 10, 1),
+        ),
+        step,
+        data,
+        state,
+    )
+    resumed = loop.try_restore()
+    print(f"arch={args.arch} family={family} resumed={resumed} start_step={loop.step}")
+    t0 = time.monotonic()
+    loop.run()
+    dt = time.monotonic() - t0
+    hist = loop.metrics_history
+    print(f"done {args.steps} steps in {dt:.1f}s; loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    if loop.straggler_events:
+        print(f"straggler events: {len(loop.straggler_events)}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,1 +1,1 @@
-"""Models of the port: the dense-GQA decoder LM (``transformer``, ``layers``)."""
+"""Models of the port: the decoder LMs (``transformer``, ``layers``)."""

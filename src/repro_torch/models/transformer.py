@@ -5,9 +5,10 @@ granite-20b, nemotron-4-15b, dbrx-132b) and DeepSeek-V2 MLA
 (deepseek-v2-lite-16b); dense SwiGLU / GELU / squared-ReLU and top-k MoE
 feed-forward (dbrx-132b, deepseek-v2-lite-16b after its dense first
 layer); the cache-free forward (whose GQA attention is the flash kernel
-when ``cfg.attn_impl == "flash"``) and cache prefill / decode.
-``loss_fn`` and the pjit partition specs (ROADMAP queue 1 item 14) are
-not ported.
+when ``cfg.attn_impl == "flash"``; that kernel has no backward, as in the
+reference), the next-token loss with per-layer activation checkpointing
+(``cfg.remat``), and cache prefill / decode.  The pjit partition specs
+come with the launch tooling (ROADMAP queue 1 item 14b).
 
 Parameters keep the reference's layout: a dict with ``embed``,
 ``final_norm``, ``unembed`` and ``groups``, a list with one dict per
@@ -18,6 +19,7 @@ layers of a group run as a Python loop (the reference scans them).
 Entry points:
   * ``init_params(cfg, seed, device)`` / ``param_shapes(cfg)`` (no storage)
   * ``forward(params, cfg, tokens)``            -> (logits, aux, caches)
+  * ``loss_fn(params, cfg, tokens, labels)``
   * ``init_kv_cache(cfg, batch, max_len)`` / ``kv_cache_shapes``
   * ``prefill`` / ``decode_step`` (update the caches in place)
 """
@@ -28,6 +30,8 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
@@ -37,6 +41,7 @@ __all__ = [
     "init_params",
     "param_shapes",
     "forward",
+    "loss_fn",
     "init_kv_cache",
     "kv_cache_shapes",
     "prefill",
@@ -142,30 +147,75 @@ def forward(
     """Returns (logits, aux_loss, caches); the final hidden states instead of
     logits when ``return_hidden``.  aux_loss sums the MoE layers' router
     losses.  With ``caches``, the new keys and values (MLA: latents) are
-    written into them in place at ``cache_index``."""
+    written into them in place at ``cache_index``.
+
+    With ``cfg.remat``, no cache and grad enabled, each layer runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): only
+    its input is saved, and its forward runs again in the backward, with
+    the same values (MoE routing is a stable sort, so it routes alike)."""
     dtype = getattr(torch, cfg.dtype)
     embed = params["embed"]
     tokens = torch.as_tensor(tokens, device=embed.device).long()
-    x = embed[tokens].to(dtype)
+    # F.embedding's backward sums rows in a fixed order on the card; the
+    # backward of indexing adds them with atomics
+    x = F.embedding(tokens, embed).to(dtype)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=embed.device)
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
 
     aux_total = torch.zeros((), dtype=torch.float32, device=embed.device)
     for g, (n, moe) in enumerate(layer_groups(cfg)):
-        stacked = params["groups"][g]
+        # unbind: the backward stacks the layers' gradients once, where one
+        # index per layer would add a zero-filled copy of the group per layer
+        layers = _map(lambda p: p.unbind(0), params["groups"][g])
         for i in range(n):
-            cache_l = None if caches is None else {k: c[i] for k, c in caches[g].items()}
-            x, aux, _ = _layer_apply(cfg, moe, _map(lambda p: p[i], stacked), x, positions,
-                                     cache_l, cache_index)
+            layer = _map(lambda ps: ps[i], layers)
+            if remat:
+                x, aux, _ = checkpoint(_layer_apply, cfg, moe, layer, x, positions, None, None,
+                                       use_reentrant=False)
+            else:
+                cache_l = None if caches is None else {k: c[i] for k, c in caches[g].items()}
+                x, aux, _ = _layer_apply(cfg, moe, layer, x, positions, cache_l, cache_index)
             aux_total = aux_total + aux
 
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x, aux_total, caches
+    return x @ _unembed(params).to(dtype), aux_total, caches
+
+
+def _unembed(params: Params) -> torch.Tensor:
     unembed = params.get("unembed")
-    if unembed is None:
-        unembed = embed.T
-    return x @ unembed.to(dtype), aux_total, caches
+    return params["embed"].T if unembed is None else unembed
+
+
+def _nll(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood ``(b, s)`` of ``labels`` under the
+    logits ``x @ unembed`` (in ``x``'s dtype), log-softmax in fp32."""
+    logp = torch.log_softmax((x @ unembed.to(x.dtype)).float(), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
+def loss_fn(params: Params, cfg: LMConfig, tokens, labels, loss_chunk: int = 0) -> torch.Tensor:
+    """Next-token cross entropy (the mean NLL) plus the MoE aux loss, an fp32
+    scalar.
+
+    ``loss_chunk > 0`` that divides the sequence and is shorter than it
+    computes the unembedding and log-softmax one sequence chunk at a time,
+    each chunk under ``torch.utils.checkpoint``: autograd keeps only the
+    chunk's hidden states, never the fp32 ``(b, s, vocab)`` logits (the
+    reference's ``lax.map`` over chunks)."""
+    labels = torch.as_tensor(labels, device=params["embed"].device).long()
+    x, aux, _ = forward(params, cfg, tokens, return_hidden=True)
+    unembed, s = _unembed(params), labels.shape[1]
+    if loss_chunk and s > loss_chunk and s % loss_chunk == 0:
+        nll = torch.stack([
+            checkpoint(_nll, x[:, c0:c0 + loss_chunk], unembed, labels[:, c0:c0 + loss_chunk],
+                       use_reentrant=False)
+            for c0 in range(0, s, loss_chunk)])
+    else:
+        nll = _nll(x, unembed, labels)
+    return nll.mean() + aux
 
 
 # ---------------------------------------------------------------------------

@@ -228,3 +228,12 @@ def moe_ep_cases(rank, world, cases):
         got, aux = moe_apply(moe_shard(params, rank, world), cfg, x, group=dist.group.WORLD)
         out.append((got.numpy(), float(aux)))
     return out
+
+
+def compressed_psum_case(rank, world, x, residual):
+    """``tests/test_torch_train.py``: rank ``rank``'s row of ``x`` (and of
+    ``residual``) through ``compressed_psum`` over the whole group."""
+    from repro_torch.train.compression import compressed_psum
+
+    mean, new_res = compressed_psum(torch.as_tensor(x[rank]), torch.as_tensor(residual[rank]))
+    return mean.numpy(), new_res.numpy()

@@ -163,6 +163,32 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    split (bf16 products, the fp32 attention core, the loss head, the
    optimizer, casts and copies, the rest), then 3 steps on one repeated
    batch, whose loss must fall; every loss finite, no flash launch.
+8g. The GNN family, trained (``[gnn]``): no kernel of the port runs here,
+   as no Pallas kernel runs on the reference's GNN path; every sum is
+   ``torch.segment_reduce`` over rows sorted once per batch, and every
+   gather's backward such a sum, so steps repeat bit for bit.  Gates: GCN
+   and GAT ``CONFIG`` on ``synthetic_cora`` and NequIP (5 x 32) and MACE
+   (2 x 128, correlation 3) ``CONFIG`` on the molecule cell (128 graphs of
+   30 atoms, 16,384 edges), each on the card against the CPU from the same
+   parameters (outputs within 1e-5 of their max, the loss within 1e-6
+   relative, every gradient leaf within 1e-4 of its max |g|); NequIP's and
+   MACE's energies under a proper rotation within 1e-4 of max(|E|, 1);
+   NequIP's forward with ``edge_chunk=4096`` within 1e-5 of the unchunked;
+   the sampler's draws from ``prng_key(0)`` on the card equal the CPU's;
+   a MACE step (molecule) and a GCN step (ogb_products) repeated from one
+   state are equal bit for bit.  Runs, each ``gnn_train_step`` (AdamW,
+   global-norm clipping) with 1 warm-up and 4 timed steps (CUDA events),
+   the peak memory and a profiler split (gathers, segment reductions,
+   products, sorts, elementwise, the optimizer profiled alone): NequIP and
+   MACE at molecule (graphs/s); GCN at ``GNN_SHAPES`` ogb_products (2.45 M
+   nodes, 61.86 M edges, d_feat 100; edges/s); GAT there if its step fits
+   the card, else its forward there (time and peak); the sampler at
+   minibatch_lg (a 232,965-node, 114.6 M-entry CSR built on the card with
+   ``torch.sort``; 1,024 seeds, fanouts 15 and 10; ms per sample and per
+   ``node_flow_to_batch``), then a GCN and a GAT step on the sampled
+   flow; finally ``python -m repro_torch.launch.train --arch gcn-cora
+   --steps 20`` with no ``--device``.  The three kernel wrappers' counters
+   must not move during the phase.
 9. Kernel A's wide path at full width (``[wide]``), once the LM weights
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
@@ -376,6 +402,33 @@ TRAIN_LAYERS = 12
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_WARMUP, TRAIN_TIMED, TRAIN_REPEAT = 2, 6, 3
 TRAIN_LR = 3e-4
+#: [gnn] (the GNN family, trained): card vs CPU with the same parameters,
+#: logits and energies max |diff| over max |out|, the loss relative, each
+#: gradient leaf's max |diff| over its max |g| (the two sum fp32 in other
+#: orders; TF32 is off); the energies under a proper rotation of the
+#: positions, |dE| over max(|E|, 1) per graph (the reference's own test
+#: bar is 1e-3).
+GNN_OUT_RTOL = 1e-5
+GNN_LOSS_RTOL = 1e-6
+GNN_GRAD_RTOL = 1e-4
+GNN_EQUIV_RTOL = 1e-4
+#: [gnn] the cells, from GNN_SHAPES: ogb_products (GCN and GAT trained on
+#: the full graph), minibatch_lg (the sampler over a 114.6 M-edge CSR on the
+#: card, then a GCN and a GAT step on the sampled flow, d_feat 128 as the
+#: reference's minibatch cell), molecule (NequIP and MACE on 128 graphs of
+#: 30 atoms and 128 directed edges each, d_feat 16).
+GNN_FULL_GRAPH = (2_449_029, 61_859_140, 100)
+GNN_MINIBATCH_GRAPH = (232_965, 114_615_892, 128)
+GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)
+GNN_MOLECULE = (30, 128, 16, 128)  # atoms, edges per graph, d_feat, graphs
+#: [gnn] NequIP's chunked forward: edges per chunk (divides the molecule
+#: batch's 16,384 edges), held against the unchunked forward.
+GNN_EDGE_CHUNK = 4096
+#: [gnn] warm-up and timed steps per run (CUDA events), the sampler's timed
+#: draws, the launcher's constant learning rate.
+GNN_WARMUP, GNN_TIMED = 1, 4
+GNN_SAMPLE_REPS = 5
+GNN_LR = 3e-4
 
 
 def log(*args) -> None:
@@ -2097,6 +2150,405 @@ def train_path(cfg, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8g: the GNN family, trained
+# ---------------------------------------------------------------------------
+
+
+def gnn_kernel_kind(name: str) -> str:
+    """Segment reductions (``torch.segment_reduce``'s kernels), products
+    (cuBLAS/CUTLASS), gathers (index reads: the edge gathers, the backward
+    of a segment sum, rows permuted into segment order), sorts (the batch's
+    argsorts and bincounts, made once per batch), and the rest
+    (elementwise, reductions)."""
+    low = name.lower()
+    if "segment" in low:
+        return "segment_reductions"
+    if lm_kernel_kind(name) == "cublas_products":
+        return "products"
+    if any(t in low for t in ("index", "gather")):
+        return "gathers"
+    if any(t in low for t in ("sort", "radix", "histogram", "bincount")):
+        return "sorts"
+    return "elementwise"
+
+
+def wrapper_launches() -> dict:
+    """The three kernel wrappers' launch counters."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    return {**counting_launches(), "flash_attention": flash_attention.launches}
+
+
+def gnn_eval(params, cfg, batch, labels):
+    """The outputs (no autograd), then the loss and every gradient leaf from
+    zeroed gradients (zeros where the loss does not reach, as in
+    ``gnn_train_step``)."""
+    import torch
+
+    from repro_torch.models import gnn as G
+    from repro_torch.train.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    with torch.no_grad():
+        out = G.forward(params, cfg, batch)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = G.loss_fn(params, cfg, batch, labels)
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return out, loss.detach(), grads
+
+
+def gnn_card_vs_cpu(cfg, params, batch, labels) -> dict:
+    """The card against the CPU (the port's same code on CPU tensors) from
+    the same parameters and batch: outputs, loss, every gradient leaf."""
+    import torch
+
+    from repro_torch.train.tree import tree_map
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    out, loss, grads = gnn_eval(params, cfg, batch, labels)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out, cpu_loss, cpu_grads = gnn_eval(tree_map(lambda p: p.detach().to(cpu), params), cfg,
+                                            batch.to(cpu), labels.to(cpu))
+    rec = {"card_s": card_s, "cpu_s": time.perf_counter() - t0,
+           "out_rel": float((out.to(cpu) - cpu_out).abs().max()) / max(float(cpu_out.abs().max()), 1e-30),
+           "loss": [float(loss), float(cpu_loss)],
+           "loss_rel": abs(float(loss) - float(cpu_loss)) / max(abs(float(cpu_loss)), 1e-30),
+           "worst_leaf": max(leaf_errors(grads, cpu_grads))}
+    if rec["out_rel"] > GNN_OUT_RTOL or rec["loss_rel"] > GNN_LOSS_RTOL or \
+            rec["worst_leaf"] > GNN_GRAD_RTOL:
+        raise AssertionError(f"[gnn] {cfg.name} card vs CPU: outputs {rec['out_rel']:g} (limit "
+                             f"{GNN_OUT_RTOL}), loss {rec['loss_rel']:g} ({GNN_LOSS_RTOL}), worst "
+                             f"leaf {rec['worst_leaf']:g} ({GNN_GRAD_RTOL})")
+    return rec
+
+
+def random_rotation(seed: int = 0):
+    """A random proper rotation (QR of a seeded normal matrix, det +1)."""
+    import torch
+
+    q, _ = torch.linalg.qr(torch.randn((3, 3), generator=torch.Generator().manual_seed(seed),
+                                       dtype=torch.float64))
+    if torch.det(q) < 0:
+        q[:, 0] *= -1
+    return q.to(torch.float32)
+
+
+def gnn_equivariance(cfg, params, batch) -> float:
+    """Per-graph energies under a proper rotation of every position:
+    max |dE| / max(|E|, 1)."""
+    import torch
+
+    from repro_torch.models import gnn as G
+
+    q = random_rotation().to(batch.positions.device)
+    with torch.no_grad():
+        e1 = G.forward(params, cfg, batch)
+        e2 = G.forward(params, cfg, dataclasses.replace(batch, positions=batch.positions @ q.T))
+    rel = float(((e2 - e1).abs() / e1.abs().clamp(min=1.0)).max())
+    if not rel <= GNN_EQUIV_RTOL:
+        raise AssertionError(f"[gnn] {cfg.name}: energies moved by {rel:g} of max(|E|, 1) under a "
+                             f"rotation (limit {GNN_EQUIV_RTOL})")
+    return rel
+
+
+def gnn_repeat(cfg, state, batch, labels) -> bool:
+    """Two train steps from copies of one state: loss, gradient norm,
+    clipped gradients and the updated state must be equal bit for bit."""
+    import torch
+
+    from repro_torch.launch.train import gnn_train_step
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    step = gnn_train_step(cfg, GNN_LR)
+    runs = []
+    for _ in range(2):
+        state_i, metrics = step(tree_map(lambda t: t.detach().clone(), state), (batch, labels))
+        grads = [p.grad for p in tree_leaves(state_i["params"]) if p.grad is not None]
+        runs.append([metrics["loss"], metrics["gnorm"], *grads,
+                     *(t.detach() for t in tree_leaves(state_i))])
+    if not (len(runs[0]) == len(runs[1]) and all(torch.equal(a, b) for a, b in zip(*runs))):
+        raise AssertionError(f"[gnn] {cfg.name}: two train steps from one state differ")
+    return True
+
+
+def gnn_split(state, step, batch, labels) -> dict:
+    """Device time of one train step by :func:`gnn_kernel_kind`, with the
+    optimizer (clipping and the AdamW update, profiled alone on the step's
+    gradients) taken out of the kinds it runs."""
+    import torch
+
+    from repro_torch.train.optimizer import adamw_update, clip_by_global_norm
+    from repro_torch.train.tree import tree_map
+
+    whole = device_profile(lambda: (step(state, (batch, labels)), torch.cuda.synchronize()),
+                           gnn_kernel_kind)
+    params = state["params"]
+    grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+    optimizer = device_profile(lambda: (adamw_update(clip_by_global_norm(grads, 1.0)[0],
+                                                     state["opt"], params, GNN_LR),
+                                        torch.cuda.synchronize()), gnn_kernel_kind)
+    split = dict(whole["split_ms"])
+    for kind, ms in optimizer["split_ms"].items():
+        split[kind] = split.get(kind, 0.0) - ms
+    split["optimizer"] = sum(optimizer["split_ms"].values())
+    return {"split_ms": split, "device_idle_share": whole["device_idle_share"],
+            "device_busy_ms": whole["device_busy_ms"], "profile_wall_ms": whole["wall_ms"],
+            "top": whole["top"]}
+
+
+def gnn_steps(tag, cfg, state, batch, labels, per_step: dict) -> dict:
+    """``GNN_WARMUP + GNN_TIMED`` train steps timed with CUDA events, the
+    peak memory over them (the batch and state included), one more step
+    profiled and split.  ``per_step`` names units of work per step (edges,
+    graphs); each is reported per second."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.train import gnn_train_step
+
+    step = gnn_train_step(cfg, GNN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = [], []
+    for _ in range(GNN_WARMUP + GNN_TIMED):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, (batch, labels))
+        stop.record()
+        events.append((start, stop))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    ms = sum(step_ms[GNN_WARMUP:]) / GNN_TIMED
+    out = {"config": cfg.name, "nodes": batch.n_nodes, "edges": batch.n_edges,
+           "graphs": batch.n_graphs, "step_ms": step_ms, "ms_per_step": ms,
+           **{f"{unit}_per_s": n / (ms / 1e3) for unit, n in per_step.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "losses": [float(x) for x in losses]}
+    out.update(gnn_split(state, step, batch, labels))
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"[gnn] {tag}: a loss is not finite: {out['losses']}")
+    log(f"[gnn] {tag} {json.dumps(out)}")
+    return out
+
+
+def gnn_edge_chunk(cfg, params, batch) -> dict:
+    """NequIP's forward with ``edge_chunk`` (a divisor of the edge count,
+    below it) against the unchunked forward: energies within
+    ``GNN_OUT_RTOL`` of their max, each timed and its peak measured."""
+    import torch
+
+    from repro_torch.models import gnn as G
+
+    if not (batch.n_edges > GNN_EDGE_CHUNK and batch.n_edges % GNN_EDGE_CHUNK == 0):
+        raise AssertionError(f"[gnn] edge_chunk {GNN_EDGE_CHUNK} does not divide {batch.n_edges} edges")
+    chunked = dataclasses.replace(cfg, edge_chunk=GNN_EDGE_CHUNK)
+    rec = {"config": cfg.name, "edges": batch.n_edges, "edge_chunk": GNN_EDGE_CHUNK}
+    energies = {}
+    with torch.no_grad():
+        for name, c in (("unchunked", cfg), ("chunked", chunked)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            energies[name] = G.forward(params, c, batch)
+            torch.cuda.synchronize()
+            rec[f"{name}_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            rec[f"{name}_forward_ms"] = time_ms(lambda: G.forward(params, c, batch), 3)
+    want = energies["unchunked"]
+    rec["rel"] = float((energies["chunked"] - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if not rec["rel"] <= GNN_OUT_RTOL:
+        raise AssertionError(f"[gnn] edge_chunk forward off the unchunked by {rec['rel']:g} "
+                             f"(limit {GNN_OUT_RTOL})")
+    return rec
+
+
+def cora_batch(g, feat):
+    """A ``GraphBatch`` over ``synthetic_cora``'s graph (both directions of
+    every edge), on ``feat``'s device."""
+    import torch
+
+    from repro_torch.models.gnn import GraphBatch
+
+    dev = feat.device
+    e, n = len(g.src), g.n
+    return GraphBatch(node_feat=feat, positions=None,
+                      src=torch.as_tensor(g.src, device=dev).long(),
+                      dst=torch.as_tensor(g.dst, device=dev).long(),
+                      edge_mask=torch.ones((e,), device=dev), node_mask=torch.ones((n,), device=dev),
+                      graph_id=torch.zeros((n,), dtype=torch.int64, device=dev))
+
+
+def minibatch_graph(device):
+    """The minibatch cell's global graph on the card: ``GNN_MINIBATCH_GRAPH``
+    uniform (src, dst) pairs from a seeded generator, grouped into a CSR by
+    destination with a stable ``torch.sort``, and seeded normal features."""
+    import torch
+
+    n, e, d = GNN_MINIBATCH_GRAPH
+    gen = torch.Generator(device=device).manual_seed(0)
+    src = torch.randint(0, n, (e,), generator=gen, device=device)
+    dst = torch.randint(0, n, (e,), generator=gen, device=device)
+    dst, order = torch.sort(dst, stable=True)
+    col_idx = src[order]
+    del src, order
+    row_ptr = torch.zeros((n + 1,), dtype=torch.int64, device=device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(dst, minlength=n), 0)
+    del dst
+    return row_ptr, col_idx, torch.randn((n, d), generator=gen, device=device)
+
+
+def gnn_launcher() -> dict:
+    """``python -m repro_torch.launch.train --arch gcn-cora --steps 20``
+    with no ``--device``: ``make_gnn_job`` and ``TrainLoop`` on the card."""
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gcn-cora", "--steps", "20"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(args, capture_output=True, text=True, timeout=300, cwd=str(HERE),
+                          env=dict(os.environ, PYTHONPATH=str(HERE / "src")))
+    rec = {"command": " ".join(args[1:]), "s": time.perf_counter() - t0,
+           "returncode": proc.returncode, "stdout": proc.stdout.strip().splitlines()[-2:]}
+    if proc.returncode != 0 or "done 20 steps" not in proc.stdout:
+        raise AssertionError(f"[gnn] launcher failed: {rec} {proc.stderr[-2000:]}")
+    return rec
+
+
+def gnn_path(device) -> dict:
+    """Phase 8g (``[gnn]``): the gates (card vs CPU for the four GNN
+    configs at full width, equivariance, the sampler, bitwise repeats),
+    then the training runs at ogb_products, minibatch_lg and molecule, and
+    the launcher on the card."""
+    import torch
+
+    from repro_torch.configs import gat_cora, gcn_cora, mace, nequip
+    from repro_torch.core.prng import prng_key
+    from repro_torch.data.pipeline import graph_batch_from_shape, synthetic_cora
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optimizer import adamw_init
+
+    t_start = time.perf_counter()
+    before = wrapper_launches()
+    out = {"gates": {}, "runs": {}}
+    gcn, gat = gcn_cora.CONFIG, gat_cora.CONFIG
+
+    def state_of(cfg, d_in):
+        params = G.init_model(cfg, d_in, seed=0, device=device)
+        return {"params": params, "opt": adamw_init(params)}
+
+    # card vs CPU: GCN and GAT on Cora, NequIP and MACE on the molecule cell
+    g, feat, labels = synthetic_cora(device=device)
+    cora = cora_batch(g, feat)
+    for cfg in (gcn, gat):
+        out["gates"][cfg.name] = gnn_card_vs_cpu(
+            cfg, G.init_model(cfg, feat.shape[1], seed=0, device=device), cora, labels)
+    del g, feat, labels, cora
+    atoms, edges, d_mol, graphs = GNN_MOLECULE
+    mol, _ = graph_batch_from_shape(atoms, edges, d_mol, batch_graphs=graphs, device=device)
+    energies = torch.zeros((graphs,), device=device)
+    for cfg in (nequip.CONFIG, mace.CONFIG):
+        state = state_of(cfg, d_mol)
+        rec = gnn_card_vs_cpu(cfg, state["params"], mol, energies)
+        rec["equivariance_rel"] = gnn_equivariance(cfg, state["params"], mol)
+        if cfg.model == "nequip":
+            out["edge_chunk"] = gnn_edge_chunk(cfg, state["params"], mol)
+        else:
+            rec["repeat_bitwise"] = gnn_repeat(cfg, state, mol, energies)
+        out["gates"][cfg.name] = rec
+        out["runs"][f"{cfg.name}_molecule"] = gnn_steps(f"{cfg.name} molecule", cfg, state, mol,
+                                                        energies, {"graphs": graphs})
+    log(f"[gnn] gates {json.dumps(out['gates'])}")
+    log(f"[gnn] edge_chunk {json.dumps(out['edge_chunk'])}")
+    del mol, energies, state
+    torch.cuda.empty_cache()
+    log(f"[time] [gnn] gates and molecule runs done in {time.perf_counter() - t_start:.1f} s")
+
+    # ogb_products: GCN, then GAT if its step fits the card
+    t0 = time.perf_counter()
+    n, e, d = GNN_FULL_GRAPH
+    big, big_labels = graph_batch_from_shape(n, e, d, with_positions=False, device=device)
+    out["ogb_products_generate_s"] = time.perf_counter() - t0
+    state = state_of(gcn, d)
+    out["gates"]["gcn_ogb_products_repeat_bitwise"] = gnn_repeat(gcn, state, big, big_labels)
+    out["runs"]["gcn_ogb_products"] = gnn_steps("gcn ogb_products", gcn, state, big, big_labels,
+                                                {"edges": e})
+    del state
+    torch.cuda.empty_cache()
+    gat_at_ogb = {"config": gat.name}
+    try:
+        out["runs"]["gat_ogb_products"] = gnn_steps("gat ogb_products", gat, state_of(gat, d), big,
+                                                    big_labels, {"edges": e})
+        gat_at_ogb["trained"] = True
+    except torch.cuda.OutOfMemoryError as err:
+        # the step does not fit: record where it stopped, then the forward
+        gat_at_ogb.update(trained=False, error=str(err).splitlines()[0][:300],
+                          max_memory_allocated_at_failure=torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    if not gat_at_ogb["trained"]:
+        params = G.init_model(gat, d, seed=0, device=device)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            gat_at_ogb["forward_ms"] = time_ms(lambda: G.forward(params, gat, big), 2)
+        gat_at_ogb["forward_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        del params
+    out["gat_ogb_products"] = gat_at_ogb
+    log(f"[gnn] gat ogb_products {json.dumps(gat_at_ogb)}")
+    del big, big_labels
+    torch.cuda.empty_cache()
+    log(f"[time] [gnn] ogb_products done in {time.perf_counter() - t0:.1f} s")
+
+    # minibatch_lg: the CSR on the card, the sampler, a GCN and a GAT step
+    t0 = time.perf_counter()
+    row_ptr, col_idx, features = minibatch_graph(device)
+    torch.cuda.synchronize()
+    sampler = {"nodes": row_ptr.numel() - 1, "edges": col_idx.numel(), "seeds": GNN_SEEDS,
+               "fanouts": list(GNN_FANOUTS), "csr_build_s": time.perf_counter() - t0}
+    seeds = torch.randperm(sampler["nodes"], generator=torch.Generator().manual_seed(0))[:GNN_SEEDS]
+    seeds = seeds.to(device)
+    key = prng_key(0, device=device)
+    flow = G.sample_node_flow(key, row_ptr, col_idx, seeds, GNN_FANOUTS)
+    cpu_flow = G.sample_node_flow(prng_key(0), row_ptr.cpu(), col_idx.cpu(), seeds.cpu(), GNN_FANOUTS)
+    sampler["card_equals_cpu"] = all(torch.equal(a.cpu(), b) for a, b in zip(
+        flow.layer_nodes + flow.layer_valid, cpu_flow.layer_nodes + cpu_flow.layer_valid))
+    if not sampler["card_equals_cpu"]:
+        raise AssertionError("[gnn] the sampler's draws on the card differ from the CPU's")
+    sampler["ms_per_sample"] = time_ms(lambda: G.sample_node_flow(key, row_ptr, col_idx, seeds,
+                                                                   GNN_FANOUTS), GNN_SAMPLE_REPS)
+    sampler["ms_per_flow_to_batch"] = time_ms(lambda: G.node_flow_to_batch(flow, features),
+                                              GNN_SAMPLE_REPS)
+    sampled = G.node_flow_to_batch(flow, features)
+    del row_ptr, col_idx, features, cpu_flow
+    sampler.update(batch_nodes=sampled.n_nodes, batch_edges=sampled.n_edges,
+                   valid_nodes=int(sampled.node_mask.sum()))
+    out["sampler"] = sampler
+    log(f"[gnn] sampler {json.dumps(sampler)}")
+    flow_labels = torch.randint(0, gcn.n_classes, (sampled.n_nodes,),
+                                generator=torch.Generator().manual_seed(1)).to(device)
+    d_flow = sampled.node_feat.shape[1]
+    for cfg in (gcn, gat):
+        out["runs"][f"{cfg.name}_minibatch_lg"] = gnn_steps(
+            f"{cfg.name} minibatch_lg", cfg, state_of(cfg, d_flow), sampled, flow_labels,
+            {"edges": sampled.n_edges, "seeds": GNN_SEEDS})
+    del sampled, flow
+    torch.cuda.empty_cache()
+    log(f"[time] [gnn] minibatch_lg done in {time.perf_counter() - t0:.1f} s")
+
+    out["launcher"] = gnn_launcher()
+    log(f"[gnn] launcher {json.dumps(out['launcher'])}")
+    after = wrapper_launches()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    if any(out["launches"].values()):
+        raise AssertionError(f"[gnn] the GNN path launched a port kernel: {out['launches']}")
+    out["s"] = time.perf_counter() - t_start
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: kernel A's wide path at full width
 # ---------------------------------------------------------------------------
 
@@ -2661,6 +3113,8 @@ def run(args, device) -> int:
     log(f"[time] MLA and MoE phases done at {time.perf_counter() - t_start:.1f} s")
     train = train_path(LM_CONFIG, device)
     log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s")
+    gnn = gnn_path(device)
+    log(f"[time] gnn phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the LM weights and every earlier engine are freed: the wide cells'
     # 41.7 and 46.4 GB of DP state fit beside nothing else
@@ -2692,7 +3146,8 @@ def run(args, device) -> int:
                               "service": served["launches"]["spmm_ema"],
                               "tune": tuned["launches"]["spmm_ema"],
                               "frontend": front["launches"]["spmm_ema"],
-                              "wide": wide["launches"]["spmm_ema"]}),
+                              "wide": wide["launches"]["spmm_ema"],
+                              "gnn": gnn["launches"]["spmm_ema"]}),
         # times: one launch at each bag width of the motif path (its
         # launches), the widths of one coloring and the n=2^20 widths in
         # "shapes" only
@@ -2707,7 +3162,8 @@ def run(args, device) -> int:
                              "motif": motif["launches"]["spmm_blocked"],
                              "service": served["launches"]["spmm_blocked"],
                              "tune": tuned["launches"]["spmm_blocked"],
-                             "frontend": front["launches"]["spmm_blocked"]}),
+                             "frontend": front["launches"]["spmm_blocked"],
+                             "gnn": gnn["launches"]["spmm_blocked"]}),
         # times: one launch at granite-8b's forward shape (b=4, s=4096),
         # which the bf16 forward launches once per layer (the fp32 gate
         # forward runs flash_attention.cu, checked by the logits gate); the
@@ -2721,7 +3177,8 @@ def run(args, device) -> int:
             launches_by_path={"lm": lm["launches"]["flash_attention"],
                               "dbrx": dbrx["launches"]["flash_attention"],
                               "train": train["run"]["flash_launches"],
-                              "train_flash_refusal": train["gates"]["flash_refusal_launches"]},
+                              "train_flash_refusal": train["gates"]["flash_refusal_launches"],
+                              "gnn": gnn["launches"]["flash_attention"]},
             fp32_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -2733,7 +3190,7 @@ def run(args, device) -> int:
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
              "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,
-             "train": train, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
+             "train": train, "gnn": gnn, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

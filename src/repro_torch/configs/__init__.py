@@ -1,1 +1,1 @@
-"""Architecture configs of the port (copies of ``repro.configs``' LM ones)."""
+"""Architecture configs of the port (copies of ``repro.configs``' LM and GNN ones)."""

@@ -1,10 +1,11 @@
-"""Config dataclasses and the LM shape cells (copies of ``repro.configs.base``).
+"""Config dataclasses and the LM and GNN shape cells (copies of
+``repro.configs.base``).
 
 Each ported architecture is a module in ``repro_torch.configs`` exporting
 ``CONFIG`` (the published configuration) and ``SMOKE_CONFIG`` (a reduced
-same-family config for CPU tests): the LMs' :class:`LMConfig` and the
-paper's own workload, :class:`SubgraphConfig`.  The GNN and recsys configs
-come with their slices of the port.
+same-family config for CPU tests): the LMs' :class:`LMConfig`, the GNNs'
+:class:`GNNConfig` and the paper's own workload, :class:`SubgraphConfig`.
+The recsys config comes with its slice of the port.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
-__all__ = ["LMConfig", "SubgraphConfig", "ShapeCell", "LM_SHAPES"]
+__all__ = ["LMConfig", "GNNConfig", "SubgraphConfig", "ShapeCell", "LM_SHAPES", "GNN_SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -88,6 +89,25 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    model: str  # gcn | gat | nequip | mace
+    n_layers: int
+    d_hidden: int
+    n_heads: int = 1
+    aggregator: str = "sum"  # sum | mean | attn
+    sym_norm: bool = False
+    # equivariant params
+    l_max: int = 0
+    n_rbf: int = 0
+    cutoff: float = 0.0
+    correlation_order: int = 1
+    n_classes: int = 16
+    edge_chunk: int = 0  # >0: edge aggregation in chunks, each recomputed in the backward (memory)
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class SubgraphConfig:
     """The paper's own workload: a graph of ``n_vertices`` / ``n_edges`` and
     one tree template (``repro_torch.core.templates.get_template`` name)."""
@@ -107,7 +127,7 @@ class ShapeCell:
     """One (input-shape) column of the dry-run grid."""
 
     name: str
-    kind: str  # train | prefill | decode | serve | ...
+    kind: str  # train | prefill | decode | full_graph | minibatch | molecule | ...
     params: Dict[str, int] = field(default_factory=dict)
 
 
@@ -116,4 +136,15 @@ LM_SHAPES: Tuple[ShapeCell, ...] = (
     ShapeCell("prefill_32k", "prefill", {"seq_len": 32768, "global_batch": 32}),
     ShapeCell("decode_32k", "decode", {"seq_len": 32768, "global_batch": 128}),
     ShapeCell("long_500k", "decode", {"seq_len": 524288, "global_batch": 1}),
+)
+
+GNN_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("full_graph_sm", "full_graph", {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+    ShapeCell(
+        "minibatch_lg",
+        "minibatch",
+        {"n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024, "fanout0": 15, "fanout1": 10},
+    ),
+    ShapeCell("ogb_products", "full_graph", {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
+    ShapeCell("molecule", "molecule", {"n_nodes": 30, "n_edges": 64, "batch": 128}),
 )

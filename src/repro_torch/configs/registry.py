@@ -1,7 +1,7 @@
 """--arch registry of the port: architecture ids -> config modules.
 
-The LMs (dense GQA, MLA, MoE) and the paper's own workload
-(``subgraph2vec``, family ``"subgraph"``) are ported.  Asking for any other architecture of the
+The LMs (dense GQA, MLA, MoE), the GNNs (GCN, GAT, NequIP, MACE) and the
+paper's own workload (``subgraph2vec``, family ``"subgraph"``) are ported.  Asking for any other architecture of the
 reference's registry raises ``NotImplementedError`` naming the ROADMAP item
 that ports it; an id the reference does not know raises ``KeyError``.  The
 reference's shape grids (``SUBGRAPH_SHAPES``, ``shapes_for``,
@@ -23,17 +23,17 @@ ARCHS: Dict[str, Tuple[str, str]] = {
     "granite-20b": ("lm", "repro_torch.configs.granite_20b"),
     "deepseek-v2-lite-16b": ("lm", "repro_torch.configs.deepseek_v2_lite_16b"),
     "dbrx-132b": ("lm", "repro_torch.configs.dbrx_132b"),
+    "gat-cora": ("gnn", "repro_torch.configs.gat_cora"),
+    "nequip": ("gnn", "repro_torch.configs.nequip"),
+    "gcn-cora": ("gnn", "repro_torch.configs.gcn_cora"),
+    "mace": ("gnn", "repro_torch.configs.mace"),
     # the paper's own workload
     "subgraph2vec": ("subgraph", "repro_torch.configs.subgraph2vec"),
 }
 
 # arch id of the reference's registry -> the ROADMAP item that ports it
 _NOT_PORTED: Dict[str, str] = {
-    "gat-cora": "ROADMAP queue 1 item 15 (GNN)",
-    "nequip": "ROADMAP queue 1 item 15 (GNN)",
-    "gcn-cora": "ROADMAP queue 1 item 15 (GNN)",
-    "mace": "ROADMAP queue 1 item 15 (GNN)",
-    "two-tower-retrieval": "ROADMAP queue 1 item 15 (recsys)",
+    "two-tower-retrieval": "ROADMAP queue 1 item 15b (recsys)",
 }
 
 

@@ -1,1 +1,2 @@
-"""Deterministic synthetic data of the port (``pipeline.token_batches``)."""
+"""Deterministic synthetic data of the port (``pipeline``: the token stream,
+the GNN graphs)."""

@@ -1,11 +1,11 @@
 """Carry state across from the JAX reference package.
 
 What the two packages must share to compare like with like: for counting,
-the graph and the colorings; for the LMs, the parameters.  This module
-takes plain numpy arrays (never a ``repro`` object's methods), so the port
-still imports nothing of the reference; a caller holding a reference
-``Graph`` passes its ``(n, src, dst)``, and one holding reference LM
-parameters passes ``jax.tree.map(np.asarray, params)``.
+the graph and the colorings; for the LMs and GNNs, the parameters.  This
+module takes plain numpy arrays (never a ``repro`` object's methods), so
+the port still imports nothing of the reference; a caller holding a
+reference ``Graph`` passes its ``(n, src, dst)``, and one holding reference
+LM or GNN parameters passes ``jax.tree.map(np.asarray, params)``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.graph import Graph
 
-__all__ = ["graph_from_arrays", "colorings_to_tensor", "lm_params_from_numpy"]
+__all__ = ["graph_from_arrays", "colorings_to_tensor", "lm_params_from_numpy", "gnn_params_from_numpy"]
 
 
 def graph_from_arrays(n: int, src, dst) -> Graph:
@@ -46,16 +46,11 @@ def colorings_to_tensor(colors, device) -> torch.Tensor:
     return torch.as_tensor(colors.astype(np.int64), device=torch.device(device))
 
 
-def lm_params_from_numpy(params_np, cfg, device):
-    """The reference's LM parameter tree (nested dicts and lists of numpy
-    arrays) as the port's fp32 parameters on ``device``.
-
-    The tree must have exactly the keys and shapes of
-    :func:`repro_torch.models.transformer.param_shapes` for ``cfg``;
-    anything else raises ``ValueError`` naming the first offending path.
-    """
-    from repro_torch.models.transformer import param_shapes
-
+def _params_like(want, params_np, device):
+    """``params_np`` (nested dicts and lists of numpy arrays) as fp32
+    tensors on ``device``, checked path by path against the tree of
+    ``meta`` tensors ``want``: the first path whose keys, length or shape
+    differ raises ``ValueError``."""
     device = torch.device(device)
 
     def convert(want, got, path):
@@ -73,4 +68,42 @@ def lm_params_from_numpy(params_np, cfg, device):
             raise ValueError(f"{path}: shape {arr.shape} != {tuple(want.shape)}")
         return torch.as_tensor(arr.astype(np.float32), device=device)
 
-    return convert(param_shapes(cfg), params_np, "")
+    return convert(want, params_np, "")
+
+
+def lm_params_from_numpy(params_np, cfg, device):
+    """The reference's LM parameter tree (nested dicts and lists of numpy
+    arrays) as the port's fp32 parameters on ``device``.
+
+    The tree must have exactly the keys and shapes of
+    :func:`repro_torch.models.transformer.param_shapes` for ``cfg``;
+    anything else raises ``ValueError`` naming the first offending path.
+    """
+    from repro_torch.models.transformer import param_shapes
+
+    return _params_like(param_shapes(cfg), params_np, device)
+
+
+def gnn_params_from_numpy(params_np, cfg, device):
+    """The reference's GNN parameter tree (dicts and lists of numpy arrays,
+    from ``repro.models.gnn.init_model``) as the port's fp32 parameters on
+    ``device``.
+
+    The input width ``d_in`` is read from the first layer's weight
+    (``layers[0]/w`` for GCN/GAT, ``embed[0]/w`` for NequIP/MACE); then the
+    tree must have exactly the keys and shapes of
+    :func:`repro_torch.models.gnn.param_shapes` for ``cfg`` and ``d_in``;
+    anything else raises ``ValueError`` naming the first offending path.
+    """
+    from repro_torch.models.gnn import param_shapes
+
+    first = ("layers", 0, "w") if cfg.model in ("gcn", "gat") else ("embed", 0, "w")
+    try:
+        leaf = params_np
+        for k in first:
+            leaf = leaf[k]
+        d_in = int(np.shape(leaf)[0])
+    except (KeyError, IndexError, TypeError) as e:
+        path = "/".join(map(str, first))
+        raise ValueError(f"{cfg.model} parameters need a weight at {path}") from e
+    return _params_like(param_shapes(cfg, d_in), params_np, device)

@@ -1,16 +1,17 @@
 """Training launcher CLI.
 
-Runs a real training job for a registered LM arch on one device, through
-the whole substrate: the config registry, the synthetic token stream,
+Runs a real training job for a registered LM or GNN arch on one device,
+through the whole substrate: the config registry, the synthetic data,
 AdamW with global-norm clipping, checkpoint/restart and the straggler
 watchdog.  The train step is plain eager PyTorch: zero the gradients,
 ``loss_fn``, ``backward``, clip, update in place.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --smoke \\
       --steps 50 --batch 8 --seq-len 128 --ckpt-dir /tmp/ckpt [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora --steps 20
 
 Without ``--device`` the job runs on the CUDA card and fails without one.
-The GNN and recsys families come with ROADMAP queue 1 item 15.
+The recsys family comes with ROADMAP queue 1 item 15b.
 """
 
 from __future__ import annotations
@@ -57,6 +58,66 @@ def make_lm_job(cfg, batch: int, seq_len: int, lr: float, device=None):
     return state, train_step, data_factory
 
 
+def gnn_train_step(cfg, lr: float):
+    """The GNN train step ``train_step(state, (batch, labels))`` ->
+    ``(state, {"loss", "gnorm"})``, written as :func:`make_lm_job`'s: zero
+    the gradients, ``loss_fn``, ``backward``, clip to global norm 1, AdamW
+    in place.  A leaf the loss does not reach (NequIP's and MACE's last l>0
+    mixes) gets a zero gradient, as under ``jax.grad``."""
+    import torch
+
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optimizer import adamw_update, clip_by_global_norm
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    def train_step(state, batch_data):
+        gb, labels = batch_data
+        params = state["params"]
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        loss = G.loss_fn(params, cfg, gb, labels)
+        loss.backward()
+        grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, params)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        params, opt = adamw_update(grads, state["opt"], params, lr)
+        return {"params": params, "opt": opt}, {"loss": loss.detach(), "gnorm": gnorm}
+
+    return train_step
+
+
+def make_gnn_job(cfg, batch: int, lr: float, device=None):
+    """``(state, train_step, data_factory)`` of a GNN job on ``device``
+    (``None``: the card), as the reference's: one fixed
+    ``graph_batch_from_shape(64, 128, 16, batch_graphs=max(batch // 16,
+    1))`` batch, class labels for GCN/GAT and zero energies for
+    NequIP/MACE, parameters from ``init_model(cfg, 16, seed=0)`` and
+    :func:`gnn_train_step`."""
+    import torch
+
+    from repro_torch.data.pipeline import graph_batch_from_shape
+    from repro_torch.device import resolve_device
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optimizer import adamw_init
+
+    device = resolve_device(device)
+    d_feat = 16
+    gb, labels = graph_batch_from_shape(64, 128, d_feat, seed=0, batch_graphs=max(batch // 16, 1),
+                                        device=device)
+    if cfg.model in ("nequip", "mace"):
+        labels = torch.zeros((gb.n_graphs,), dtype=torch.float32, device=device)
+    params = G.init_model(cfg, d_feat, seed=0, device=device)
+    state = {"params": params, "opt": adamw_init(params)}
+
+    def data_factory(start_step):
+        def gen():
+            while True:
+                yield (gb, labels)
+        return gen()
+
+    return state, gnn_train_step(cfg, lr), data_factory
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -73,11 +134,14 @@ def main(argv=None) -> int:
     from repro_torch.configs.registry import get_arch
     from repro_torch.train.loop import LoopConfig, TrainLoop
 
-    family, module = get_arch(args.arch)  # the GNN and recsys archs raise here
+    family, module = get_arch(args.arch)  # the recsys arch raises here
     cfg = module.SMOKE_CONFIG if args.smoke else module.CONFIG
-    if family != "lm":
+    if family == "lm":
+        state, step, data = make_lm_job(cfg, args.batch, args.seq_len, args.lr, device=args.device)
+    elif family == "gnn":
+        state, step, data = make_gnn_job(cfg, args.batch, args.lr, device=args.device)
+    else:
         raise SystemExit(f"train launcher does not support family {family}")
-    state, step, data = make_lm_job(cfg, args.batch, args.seq_len, args.lr, device=args.device)
 
     loop = TrainLoop(
         LoopConfig(

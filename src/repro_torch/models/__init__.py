@@ -1,1 +1,2 @@
-"""Models of the port: the decoder LMs (``transformer``, ``layers``)."""
+"""Models of the port: the decoder LMs (``transformer``, ``layers``) and the
+GNNs (``gnn``: GCN, GAT, NequIP, MACE, the neighbour sampler)."""

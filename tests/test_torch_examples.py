@@ -125,3 +125,13 @@ def test_distributed_example_matches_the_reference_local_estimate():
     got = float(_NUMBER.findall(lines[2])[0])
     assert got == pytest.approx(want.mean, rel=1e-3)  # printed to 4 digits
     assert float(_NUMBER.findall(lines[3])[-1]) < 1e-5
+
+
+def test_serve_lm_example_serves_every_request():
+    """``examples/torch/serve_lm.py``: the reference example's config and
+    requests, every one served to its 12 tokens (the weights are the port's
+    own draws, so the tokens differ from the reference's)."""
+    module = _load(os.path.join(REPO, "examples", "torch", "serve_lm.py"), "torch_serve_lm_example")
+    lines = _printed(module.main, ["--device", "cpu"])
+    assert len([line for line in lines if line.startswith("  req ")]) == 10
+    assert lines[-1].startswith("OK")

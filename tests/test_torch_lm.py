@@ -65,7 +65,7 @@ def test_configs_are_copies(arch):
 
 def test_unported_archs_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 15"):
-        get_arch("gcn-cora")
+        get_arch("two-tower-retrieval")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

@@ -628,7 +628,7 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path):
     assert "resumed=True start_step=10" in second and "done 20 steps" in second
     assert sorted(os.listdir(tmp_path)) == ["step_00000010", "step_00000020"]
     with pytest.raises(NotImplementedError, match="item 15"):
-        launch.main(["--arch", "gcn-cora", "--device", "cpu"])
+        launch.main(["--arch", "two-tower-retrieval", "--device", "cpu"])
     with pytest.raises(SystemExit, match="family subgraph"):
         launch.main(["--arch", "subgraph2vec", "--device", "cpu"])
 

@@ -189,6 +189,29 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    flow; finally ``python -m repro_torch.launch.train --arch gcn-cora
    --steps 20`` with no ``--device``.  The three kernel wrappers' counters
    must not move during the phase.
+8h. The two-tower recommender, trained and served (``[recsys]``): no
+   kernel of the port runs here, as no Pallas kernel runs on the
+   reference's recsys path; the EmbeddingBag is ``F.embedding`` and a sum
+   over the bag.  TF32 off.  Vocabularies are cut in the config
+   (``max(int(v * s), 8)`` rows per field, so the click stream draws inside
+   the tables); widths, fields, bag, towers, temperature and the
+   ``RECSYS_SHAPES`` batches are the published ones.  Gates at vocab 1e-4,
+   b=512: both towers within 1e-5 of their max, ``serve_scores`` within
+   1e-5, the loss within 1e-6 relative and every gradient leaf within 1e-4
+   of its max, card against CPU from the same parameters; top-100 over a
+   1,000,000-candidate corpus (built by the card's item tower) card
+   against CPU, values within 1e-5 and the same ids but for near ties; a
+   bag with an index past its table NaN on the card as on the CPU (and a
+   negative one wrapped); one ``make_recsys_job`` step at vocab 1e-3,
+   b=4,096, repeated from one state, equal bit for bit.  Cells:
+   ``train_batch`` (b=65,536, vocab 0.02: ``make_recsys_job`` steps, ms per
+   step, examples/s, peak memory, the model-FLOP share of 67 TFLOP/s, a
+   profiler split with the loss head and the optimizer profiled alone);
+   ``serve_p99`` (b=512, vocab 0.25: p50/p99 per request), ``serve_bulk``
+   (b=262,144 in one call) and ``retrieval_cand`` (the 1 M-row corpus
+   built in chunks, then p50/p99 per query of ``retrieval_scores`` and
+   ``retrieval_topk``), each beside its bound.  The three kernel wrappers'
+   counters must not move during the phase.
 9. Kernel A's wide path at full width (``[wide]``), once the LM weights
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
@@ -429,6 +452,31 @@ GNN_EDGE_CHUNK = 4096
 GNN_WARMUP, GNN_TIMED = 1, 4
 GNN_SAMPLE_REPS = 5
 GNN_LR = 3e-4
+#: [recsys] gates (the published widths, vocabulary cut to
+#: RECSYS_GATE_VOCAB, b=RECSYS_GATE_BATCH): card vs CPU, towers, serving
+#: scores and retrieval values max |diff| over max |ref|, the loss relative,
+#: each gradient leaf's max |diff| over its max |g| (TF32 is off).
+RECSYS_OUT_RTOL = 1e-5
+RECSYS_LOSS_RTOL = 1e-6
+RECSYS_GRAD_RTOL = 1e-4
+RECSYS_GATE_VOCAB, RECSYS_GATE_BATCH = 1e-4, 512
+RECSYS_GATE_QUERIES = 4
+#: [recsys] the bitwise repeat of one make_recsys_job step
+RECSYS_REPEAT_VOCAB, RECSYS_REPEAT_BATCH = 1e-3, 4096
+#: [recsys] the cells' vocabulary cuts: training holds its tables' dense
+#: gradients, AdamW's moments and three (b, b) fp32 logits at b=65,536
+#: (17.2 GB each); serving holds only the tables (44.4 GB at 0.25).
+RECSYS_TRAIN_VOCAB = 0.02
+RECSYS_SERVE_VOCAB = 0.25
+#: [recsys] warm-up and timed train steps, warm-up and timed serving
+#: requests and retrieval queries, timed bulk calls, corpus chunk rows,
+#: top-k, the job's learning rate.
+RECSYS_TRAIN_WARMUP, RECSYS_TRAIN_TIMED = 2, 6
+RECSYS_WARMUP, RECSYS_REQUESTS = 10, 200
+RECSYS_BULK_REPS = 3
+RECSYS_CORPUS_CHUNK = 65536
+RECSYS_TOPK = 100
+RECSYS_LR = 3e-4
 
 
 def log(*args) -> None:
@@ -2549,6 +2597,465 @@ def gnn_path(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8h: the two-tower recommender, trained and served
+# ---------------------------------------------------------------------------
+
+
+def recsys_cell(name: str) -> dict:
+    from repro_torch.configs.base import RECSYS_SHAPES
+
+    return next(c for c in RECSYS_SHAPES if c.name == name).params
+
+
+def recsys_cut(cfg, scale: float):
+    """``cfg`` with each field's vocabulary cut to ``max(int(v * scale), 8)``,
+    so the click stream draws inside the tables ``init_params`` builds."""
+    def sizes(vs):
+        return tuple(max(int(v * scale), 8) for v in vs)
+
+    return dataclasses.replace(cfg, user_vocab_sizes=sizes(cfg.user_vocab_sizes),
+                               item_vocab_sizes=sizes(cfg.item_vocab_sizes))
+
+
+def recsys_vocab(cfg, scale: float) -> dict:
+    return {"vocab_scale": scale, "user_vocab_sizes": list(cfg.user_vocab_sizes),
+            "item_vocab_sizes": list(cfg.item_vocab_sizes)}
+
+
+def recsys_flops(cfg, batch: int) -> float:
+    """The reference cell's count (``src/repro/launch/cells.py``
+    ``_recsys_flops``): the bags' adds and both towers' products."""
+    d = cfg.embed_dim
+    lookups = batch * (cfg.n_user_fields + cfg.n_item_fields) * cfg.multi_hot_per_field * d
+    dims_u = [d * cfg.n_user_fields] + list(cfg.tower_mlp)
+    mlp = sum(2.0 * a * b for a, b in zip(dims_u[:-1], dims_u[1:])) * 2 * batch
+    return lookups + mlp
+
+
+def tensor_bytes(tree) -> int:
+    from repro_torch.train.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def rows_bytes(cfg, *indices) -> int:
+    """Bytes of the distinct table rows the bags of ``indices`` read (each
+    ``(b, fields, bag)``, field ``f`` of each its own table)."""
+    import torch
+
+    rows = sum(torch.unique(x[:, f]).numel() for x in indices for f in range(x.shape[1]))
+    return rows * cfg.embed_dim * 4
+
+
+def recsys_kernel_kind(name: str) -> str:
+    """Products (cuBLAS/CUTLASS), the EmbeddingBag's gathers and their
+    backward (index reads; the backward's sort, bincount and segment sums),
+    and the rest (elementwise, reductions, fills)."""
+    low = name.lower()
+    if lm_kernel_kind(name) == "cublas_products":
+        return "products"
+    if any(t in low for t in ("embedding", "index", "gather", "radix", "sort", "histogram",
+                              "segment")):
+        return "embedding"
+    return "rest"
+
+
+def recsys_eval(params, cfg, uix, iix, log_q):
+    """Both towers and the serving scores (no autograd), then the loss and
+    every gradient leaf from zeroed gradients."""
+    import torch
+
+    from repro_torch.models import recsys as R
+    from repro_torch.train.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    with torch.no_grad():
+        outs = [*R.forward(params, cfg, uix, iix), R.serve_scores(params, cfg, uix, iix)]
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = R.loss_fn(params, cfg, uix, iix, log_q)
+    loss.backward()
+    grads = [p.grad for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return outs, loss.detach(), grads
+
+
+def recsys_corpus(params, cfg, n: int, device, seed: int):
+    """The item tower's vectors of ``n`` items (the click stream's item rows,
+    ``RECSYS_CORPUS_CHUNK`` at a time), and the ms of the tower passes
+    (CUDA events; the draws are made first)."""
+    import torch
+
+    from repro_torch.data.pipeline import click_batches
+    from repro_torch.models import recsys as R
+
+    stream = click_batches(cfg, RECSYS_CORPUS_CHUNK, seed=seed, device=device)
+    chunks = [next(stream)[1] for _ in range(-(-n // RECSYS_CORPUS_CHUNK))]
+    corpus = torch.empty((n, cfg.tower_mlp[-1]), device=device)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.no_grad():
+        for c, idx in enumerate(chunks):
+            lo = c * RECSYS_CORPUS_CHUNK
+            hi = min(lo + RECSYS_CORPUS_CHUNK, n)
+            corpus[lo:hi] = R._encode(params["item_tables"], params["item_tower"], idx[:hi - lo])
+    stop.record()
+    torch.cuda.synchronize()
+    return corpus, start.elapsed_time(stop)
+
+
+def recsys_topk_gate(scores, cpu_scores) -> dict:
+    """One query's top-``RECSYS_TOPK`` on the card against the CPU's: values
+    within ``RECSYS_OUT_RTOL`` of the largest |score|, and the same ids but
+    for near ties: where the two differ at a rank, the CPU's scores of both
+    ids are within that tolerance, and the two sets of ids are equal unless
+    the CPU's k-th and (k+1)-th scores are as near."""
+    from repro_torch.models import recsys as R
+
+    tol = RECSYS_OUT_RTOL * float(cpu_scores.abs().max())
+    values, ids = (t.cpu() for t in R.retrieval_topk(scores, RECSYS_TOPK))
+    cpu_values, cpu_ids = R.retrieval_topk(cpu_scores, RECSYS_TOPK + 1)
+    swapped = ids != cpu_ids[:-1]
+    near = (cpu_scores[ids] - cpu_scores[cpu_ids[:-1]]).abs() <= tol
+    rec = {"value_err": float((values - cpu_values[:-1]).abs().max()), "tol": tol,
+           "swapped_ranks": int(swapped.sum()),
+           "edge_gap": float(cpu_values[-2] - cpu_values[-1]),
+           "same_ids": set(ids.tolist()) == set(cpu_ids[:-1].tolist())}
+    if rec["value_err"] > tol or not bool(near[swapped].all()) or \
+            (rec["edge_gap"] > tol and not rec["same_ids"]):
+        raise AssertionError(f"[recsys] retrieval top-{RECSYS_TOPK}: card vs CPU {rec}")
+    return rec
+
+
+def recsys_nan_gate(table) -> dict:
+    """Bags holding an index past the table (and one below ``-rows``) are NaN
+    on the card as on the CPU, a negative index ``>= -rows`` wraps, and the
+    card's context survives (no device-side assert)."""
+    import torch
+
+    from repro_torch.models import recsys as R
+
+    rows = table.shape[0]
+    idx = torch.tensor([[0, 1, 2, 3], [rows, 0, 1, 2], [-1, -rows, 5, 6], [4, -rows - 1, 7, 8]])
+    got = R.embedding_bag(table, idx.to(table.device)).cpu()
+    want = R.embedding_bag(table.cpu(), idx)
+    rec = {"rows": rows, "nan_bags": torch.isnan(got).all(-1).tolist(),
+           "max_abs_err": float((got - want).nan_to_num().abs().max())}
+    if rec["nan_bags"] != [False, True, False, True] or \
+            not torch.equal(torch.isnan(got), torch.isnan(want)) or \
+            rec["max_abs_err"] > RECSYS_OUT_RTOL * float(want.nan_to_num().abs().max()):
+        raise AssertionError(f"[recsys] out-of-range bags: {rec}")
+    return rec
+
+
+def recsys_repeat(cfg, device) -> dict:
+    """One ``make_recsys_job`` step from copies of one state, twice: loss,
+    gradient norm, gradients and the updated state equal bit for bit."""
+    import torch
+
+    from repro_torch.launch.train import make_recsys_job
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    rep_cfg = recsys_cut(cfg, RECSYS_REPEAT_VOCAB)
+    state, step, data = make_recsys_job(rep_cfg, RECSYS_REPEAT_BATCH, RECSYS_LR, device=device)
+    batch = next(data(0))
+    runs = []
+    for _ in range(2):
+        state_i, metrics = step(tree_map(lambda t: t.detach().clone(), state), batch)
+        runs.append([metrics["loss"], metrics["gnorm"],
+                     *(p.grad for p in tree_leaves(state_i["params"])),
+                     *(t.detach() for t in tree_leaves(state_i))])
+    rec = {**recsys_vocab(rep_cfg, RECSYS_REPEAT_VOCAB), "batch": RECSYS_REPEAT_BATCH,
+           "loss": float(runs[0][0]),
+           "bitwise": len(runs[0]) == len(runs[1]) and all(torch.equal(a, b) for a, b in zip(*runs))}
+    if not rec["bitwise"]:
+        raise AssertionError(f"[recsys] two make_recsys_job steps from one state differ: {rec}")
+    return rec
+
+
+def recsys_gates(cfg, device) -> dict:
+    """Card against CPU at ``cfg``'s widths with the vocabulary cut to
+    ``RECSYS_GATE_VOCAB``: towers, serving scores, the loss, every gradient
+    leaf; top-k retrieval over a corpus of ``retrieval_cand``'s size; the
+    out-of-range bags; then the bitwise repeat of a step."""
+    import torch
+
+    from repro_torch.data.pipeline import click_batches
+    from repro_torch.models import recsys as R
+    from repro_torch.train.tree import tree_map
+
+    cpu = torch.device("cpu")
+    gate_cfg = recsys_cut(cfg, RECSYS_GATE_VOCAB)
+    params = R.init_params(gate_cfg, seed=0, device=device)
+    batch = next(click_batches(gate_cfg, RECSYS_GATE_BATCH, seed=1, device=device))
+    t0 = time.perf_counter()
+    outs, loss, grads = recsys_eval(params, gate_cfg, *batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu_params = tree_map(lambda p: p.detach().to(cpu), params)
+    t0 = time.perf_counter()
+    cpu_outs, cpu_loss, cpu_grads = recsys_eval(cpu_params, gate_cfg, *(x.to(cpu) for x in batch))
+    rec = {**recsys_vocab(gate_cfg, RECSYS_GATE_VOCAB), "batch": RECSYS_GATE_BATCH,
+           "card_s": card_s, "cpu_s": time.perf_counter() - t0,
+           "out_rel": dict(zip(("user", "item", "serve"), leaf_errors(outs, cpu_outs))),
+           "loss": [float(loss), float(cpu_loss)],
+           "loss_rel": abs(float(loss) - float(cpu_loss)) / max(abs(float(cpu_loss)), 1e-30),
+           "worst_leaf": max(leaf_errors(grads, cpu_grads))}
+    if max(rec["out_rel"].values()) > RECSYS_OUT_RTOL or rec["loss_rel"] > RECSYS_LOSS_RTOL or \
+            rec["worst_leaf"] > RECSYS_GRAD_RTOL:
+        raise AssertionError(f"[recsys] card vs CPU: {rec} (limits: outputs {RECSYS_OUT_RTOL}, "
+                             f"loss {RECSYS_LOSS_RTOL}, leaves {RECSYS_GRAD_RTOL})")
+    del grads, cpu_grads
+    n = recsys_cell("retrieval_cand")["n_candidates"]
+    corpus, _ = recsys_corpus(params, gate_cfg, n, device, seed=2)
+    cpu_corpus = corpus.cpu()
+    queries = next(click_batches(gate_cfg, RECSYS_GATE_QUERIES, seed=3, device=device))[0]
+    with torch.no_grad():
+        rec["retrieval"] = [recsys_topk_gate(
+            R.retrieval_scores(params, gate_cfg, queries[q:q + 1], corpus),
+            R.retrieval_scores(cpu_params, gate_cfg, queries[q:q + 1].cpu(), cpu_corpus))
+            for q in range(RECSYS_GATE_QUERIES)]
+        rec["nan_bags"] = recsys_nan_gate(params["user_tables"][0].detach())
+    del params, cpu_params, corpus, cpu_corpus
+    torch.cuda.empty_cache()
+    rec["repeat"] = recsys_repeat(cfg, device)
+    return rec
+
+
+def recsys_split(state, step, batch, cfg) -> dict:
+    """Device time of one train step by :func:`recsys_kernel_kind`, with the
+    loss head (the (b, b) logits, logQ, log-softmax, the NLL and their
+    backward, from unit vectors of the towers' shape) and the optimizer
+    (clipping and AdamW on the step's gradients) profiled alone and taken
+    out of the kinds they run: what is left of the products is the towers'."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw_update, clip_by_global_norm
+    from repro_torch.train.tree import tree_map
+
+    whole = device_profile(lambda: (step(state, batch), torch.cuda.synchronize()), recsys_kernel_kind)
+    device, b, d = batch[0].device, batch[0].shape[0], cfg.tower_mlp[-1]
+    gen = torch.Generator(device=device).manual_seed(7)
+    u, i = (F.normalize(torch.randn((b, d), generator=gen, device=device), dim=-1).requires_grad_(True)
+            for _ in range(2))
+    head = device_profile(lambda: (R._sampled_softmax(u, i, cfg, batch[2]).backward(),
+                                   torch.cuda.synchronize()), recsys_kernel_kind)
+    del u, i
+    params = state["params"]
+    grads = tree_map(lambda p: p.grad, params)
+    optimizer = device_profile(lambda: (adamw_update(clip_by_global_norm(grads, 1.0)[0],
+                                                     state["opt"], params, RECSYS_LR),
+                                        torch.cuda.synchronize()), recsys_kernel_kind)
+    split = dict(whole["split_ms"])
+    for part in (head, optimizer):
+        for kind, ms in part["split_ms"].items():
+            split[kind] = split.get(kind, 0.0) - ms
+    return {"split_ms": {"embedding": split.get("embedding", 0.0),
+                         "tower_products": split.get("products", 0.0),
+                         "logits_and_softmax": sum(head["split_ms"].values()),
+                         "optimizer": sum(optimizer["split_ms"].values()),
+                         "rest": split.get("rest", 0.0)},
+            "device_idle_share": whole["device_idle_share"],
+            "device_busy_ms": whole["device_busy_ms"], "profile_wall_ms": whole["wall_ms"],
+            "top": whole["top"]}
+
+
+def recsys_train(cfg, device) -> dict:
+    """``train_batch``: ``make_recsys_job`` at the cell's batch with the
+    vocabulary cut to ``RECSYS_TRAIN_VOCAB``, its batches drawn first,
+    ``RECSYS_TRAIN_WARMUP`` steps then ``RECSYS_TRAIN_TIMED`` timed (CUDA
+    events), the peak memory over them, one more step profiled and split."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.train import make_recsys_job
+    from repro_torch.train.tree import tree_leaves
+
+    b = recsys_cell("train_batch")["batch"]
+    train_cfg = recsys_cut(cfg, RECSYS_TRAIN_VOCAB)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step, data = make_recsys_job(train_cfg, b, RECSYS_LR, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stream = data(0)
+    batches = [next(stream) for _ in range(RECSYS_TRAIN_WARMUP + RECSYS_TRAIN_TIMED + 1)]
+    events, losses = [], []
+    for batch in batches[:-1]:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        stop.record()
+        events.append((start, stop))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(z) for a, z in events]
+    ms = sum(step_ms[RECSYS_TRAIN_WARMUP:]) / RECSYS_TRAIN_TIMED
+    flops = 3.0 * (recsys_flops(train_cfg, b) + 2.0 * b * b * train_cfg.tower_mlp[-1])
+    # compulsory bytes: parameters and AdamW's moments read and written once
+    nbytes = 2 * (tensor_bytes(state["params"]) + tensor_bytes(state["opt"])) + tensor_bytes(batches[0])
+    bound, bound_by = bound_ms(nbytes, flops)
+    out = {"cell": "train_batch", **recsys_vocab(train_cfg, RECSYS_TRAIN_VOCAB), "batch": b,
+           "parameters": sum(p.numel() for p in tree_leaves(state["params"])),
+           "table_bytes": tensor_bytes(state["params"]["user_tables"] + state["params"]["item_tables"]),
+           "init_s": init_s, "step_ms": step_ms, "ms_per_step": ms,
+           "examples_per_s": b / (ms / 1e3), "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "model_flops_per_step": flops, "bound_ms": bound, "bound_by": bound_by,
+           "model_flop_share": flops / PEAK_FP32_FLOPS / (ms / 1e3),
+           "losses": [float(x) for x in losses]}
+    out.update(recsys_split(state, step, batches[-1], train_cfg))
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"[recsys] train_batch: a loss is not finite: {out['losses']}")
+    return out
+
+
+def recsys_latency(fn, inputs) -> dict:
+    """``fn`` on each input in turn, its result copied to the host: the first
+    ``RECSYS_WARMUP`` untimed, the rest each timed with CUDA events (from
+    its first launch to its last) and on the host clock (until its result is
+    on the host); p50/p99 of both, then the device's idle share over 20
+    more profiled."""
+    import numpy as np
+    import torch
+
+    def to_host(y):
+        return [t.cpu() for t in (y if isinstance(y, tuple) else (y,))]
+
+    events, host_ms = [], []
+    for n, x in enumerate(inputs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        y = fn(x)
+        stop.record()
+        to_host(y)
+        if n >= RECSYS_WARMUP:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            events.append((start, stop))
+    torch.cuda.synchronize()
+    device_ms = [a.elapsed_time(z) for a, z in events]
+    profile = device_profile(lambda: [to_host(fn(x)) for x in inputs[:20]])
+    return {"requests": len(device_ms),
+            "device_ms_p50": float(np.percentile(device_ms, 50)),
+            "device_ms_p99": float(np.percentile(device_ms, 99)),
+            "host_ms_p50": float(np.percentile(host_ms, 50)),
+            "host_ms_p99": float(np.percentile(host_ms, 99)),
+            "host_ms_mean": float(np.mean(host_ms)),
+            "device_idle_share": profile["device_idle_share"], "profile_top": profile["top"]}
+
+
+def recsys_serve(cfg, device) -> dict:
+    """``serve_p99``, ``serve_bulk`` and ``retrieval_cand`` on one set of
+    parameters with the vocabulary cut to ``RECSYS_SERVE_VOCAB``, each
+    beside its bound (the operations of both towers, or of the item tower
+    for the corpus; the bytes of the distinct table rows read, the tower
+    weights and the corpus)."""
+    import torch
+
+    from repro_torch.data.pipeline import click_batches
+    from repro_torch.models import recsys as R
+
+    serve_cfg = recsys_cut(cfg, RECSYS_SERVE_VOCAB)
+    d = serve_cfg.tower_mlp[-1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = R.init_params(serve_cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    towers = tensor_bytes([params["user_tower"], params["item_tower"]])
+    out = {"cut": {**recsys_vocab(serve_cfg, RECSYS_SERVE_VOCAB), "init_s": time.perf_counter() - t0,
+                   "table_bytes": tensor_bytes([params["user_tables"], params["item_tables"]])}}
+    with torch.no_grad():
+        # serve_p99: one request of the cell's batch at a time
+        b = recsys_cell("serve_p99")["batch"]
+        stream = click_batches(serve_cfg, b, seed=11, device=device)
+        requests = [next(stream)[:2] for _ in range(RECSYS_WARMUP + RECSYS_REQUESTS)]
+        rec = {"cell": "serve_p99", "batch": b,
+               **recsys_latency(lambda x: R.serve_scores(params, serve_cfg, *x), requests)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            rows_bytes(serve_cfg, *requests[-1]) + towers + 4 * b,
+            recsys_flops(serve_cfg, b) + 2.0 * b * d)
+        out["serve_p99"] = rec
+        log(f"[recsys] serve_p99 {json.dumps(rec)}")
+        del requests
+
+        # serve_bulk: the cell's batch in one call
+        b = recsys_cell("serve_bulk")["batch"]
+        uix, iix, _ = next(click_batches(serve_cfg, b, seed=12, device=device))
+        torch.cuda.reset_peak_memory_stats()
+        scores = R.serve_scores(params, serve_cfg, uix, iix)
+        if not bool(torch.isfinite(scores).all()):
+            raise AssertionError("[recsys] serve_bulk: a score is not finite")
+        ms = time_ms(lambda: R.serve_scores(params, serve_cfg, uix, iix), RECSYS_BULK_REPS)
+        rec = {"cell": "serve_bulk", "batch": b, "chunk_rows": b, "ms": ms,
+               "rows_per_s": b / (ms / 1e3), "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "distinct_row_bytes": rows_bytes(serve_cfg, uix, iix),
+               "flops": recsys_flops(serve_cfg, b) + 2.0 * b * d}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["distinct_row_bytes"] + towers + 4 * b,
+                                                    rec["flops"])
+        out["serve_bulk"] = rec
+        log(f"[recsys] serve_bulk {json.dumps(rec)}")
+        del uix, iix, scores
+
+        # retrieval_cand: the corpus built once, then one query at a time
+        cell = recsys_cell("retrieval_cand")
+        n = cell["n_candidates"]
+        corpus, build_ms = recsys_corpus(params, serve_cfg, n, device, seed=13)
+        build_bound = bound_ms(corpus.numel() * 4, recsys_flops(serve_cfg, n) / 2)
+        stream = click_batches(serve_cfg, cell["batch"], seed=14, device=device)
+        queries = [next(stream)[0] for _ in range(RECSYS_WARMUP + RECSYS_REQUESTS)]
+        rec = {"cell": "retrieval_cand", "n_candidates": n, "k": RECSYS_TOPK,
+               "corpus_chunk": RECSYS_CORPUS_CHUNK, "corpus_build_ms": build_ms,
+               "corpus_build_bound_ms": build_bound[0], "corpus_build_bound_by": build_bound[1],
+               **recsys_latency(lambda q: R.retrieval_topk(
+                   R.retrieval_scores(params, serve_cfg, q, corpus), RECSYS_TOPK), queries)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            corpus.numel() * 4 + towers / 2 + rows_bytes(serve_cfg, queries[-1]),
+            2.0 * n * d + recsys_flops(serve_cfg, 1) / 2)
+        out["retrieval_cand"] = rec
+        log(f"[recsys] retrieval_cand {json.dumps(rec)}")
+    del params, corpus, queries
+    torch.cuda.empty_cache()
+    return out
+
+
+def recsys_path(device) -> dict:
+    """Phase 8h (``[recsys]``): the gates, then ``train_batch`` and the three
+    serving cells of ``RECSYS_SHAPES`` at two-tower-retrieval's published
+    widths, each with its vocabulary cut."""
+    import torch
+
+    from repro_torch.configs.two_tower_retrieval import CONFIG
+
+    t_start = time.perf_counter()
+    before = wrapper_launches()
+    out = {"card": card_line(), "gates": recsys_gates(CONFIG, device)}
+    log(f"[recsys] gates {json.dumps(out['gates'])}")
+    log(f"[time] [recsys] gates done in {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
+    out["train_batch"] = recsys_train(CONFIG, device)
+    log(f"[recsys] train_batch {json.dumps(out['train_batch'])}")
+    torch.cuda.empty_cache()
+    log(f"[time] [recsys] train_batch done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out.update(recsys_serve(CONFIG, device))
+    log(f"[recsys] cut {json.dumps(out['cut'])}")
+    log(f"[time] [recsys] serving cells done in {time.perf_counter() - t0:.1f} s")
+    after = wrapper_launches()
+    out["launches"] = {k: after[k] - before[k] for k in after}
+    if any(out["launches"].values()):
+        raise AssertionError(f"[recsys] the recsys path launched a port kernel: {out['launches']}")
+    out["s"] = time.perf_counter() - t_start
+    log(f"[recsys] card {out['card']} launches {json.dumps(out['launches'])} in {out['s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: kernel A's wide path at full width
 # ---------------------------------------------------------------------------
 
@@ -3115,6 +3622,8 @@ def run(args, device) -> int:
     log(f"[time] train phase done at {time.perf_counter() - t_start:.1f} s")
     gnn = gnn_path(device)
     log(f"[time] gnn phase done at {time.perf_counter() - t_start:.1f} s")
+    recsys = recsys_path(device)
+    log(f"[time] recsys phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the LM weights and every earlier engine are freed: the wide cells'
     # 41.7 and 46.4 GB of DP state fit beside nothing else
@@ -3147,7 +3656,8 @@ def run(args, device) -> int:
                               "tune": tuned["launches"]["spmm_ema"],
                               "frontend": front["launches"]["spmm_ema"],
                               "wide": wide["launches"]["spmm_ema"],
-                              "gnn": gnn["launches"]["spmm_ema"]}),
+                              "gnn": gnn["launches"]["spmm_ema"],
+                              "recsys": recsys["launches"]["spmm_ema"]}),
         # times: one launch at each bag width of the motif path (its
         # launches), the widths of one coloring and the n=2^20 widths in
         # "shapes" only
@@ -3163,7 +3673,8 @@ def run(args, device) -> int:
                              "service": served["launches"]["spmm_blocked"],
                              "tune": tuned["launches"]["spmm_blocked"],
                              "frontend": front["launches"]["spmm_blocked"],
-                             "gnn": gnn["launches"]["spmm_blocked"]}),
+                             "gnn": gnn["launches"]["spmm_blocked"],
+                             "recsys": recsys["launches"]["spmm_blocked"]}),
         # times: one launch at granite-8b's forward shape (b=4, s=4096),
         # which the bf16 forward launches once per layer (the fp32 gate
         # forward runs flash_attention.cu, checked by the logits gate); the
@@ -3178,7 +3689,8 @@ def run(args, device) -> int:
                               "dbrx": dbrx["launches"]["flash_attention"],
                               "train": train["run"]["flash_launches"],
                               "train_flash_refusal": train["gates"]["flash_refusal_launches"],
-                              "gnn": gnn["launches"]["flash_attention"]},
+                              "gnn": gnn["launches"]["flash_attention"],
+                              "recsys": recsys["launches"]["flash_attention"]},
             fp32_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3190,7 +3702,7 @@ def run(args, device) -> int:
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
              "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,
-             "train": train, "gnn": gnn, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
+             "train": train, "gnn": gnn, "recsys": recsys, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

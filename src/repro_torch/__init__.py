@@ -1,5 +1,6 @@
 """repro_torch: the PyTorch/CUDA port of the SubGraph2Vec counting system
-and of its LM substrate (inference and single-device training).
+and of its model substrate: LM inference and single-device training, GNN
+training, and the two-tower recommender, trained and served.
 
 A package beside ``repro`` (the JAX reference, which it never imports).
 Module names follow the reference's, so each module's counterpart is easy

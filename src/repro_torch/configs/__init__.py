@@ -1,1 +1,1 @@
-"""Architecture configs of the port (copies of ``repro.configs``' LM and GNN ones)."""
+"""Architecture configs of the port (copies of ``repro.configs``' LM, GNN and recsys ones)."""

@@ -1,11 +1,13 @@
-"""Config dataclasses and the LM and GNN shape cells (copies of
+"""Config dataclasses and the LM, GNN and recsys shape cells (copies of
 ``repro.configs.base``).
 
 Each ported architecture is a module in ``repro_torch.configs`` exporting
 ``CONFIG`` (the published configuration) and ``SMOKE_CONFIG`` (a reduced
 same-family config for CPU tests): the LMs' :class:`LMConfig`, the GNNs'
-:class:`GNNConfig` and the paper's own workload, :class:`SubgraphConfig`.
-The recsys config comes with its slice of the port.
+:class:`GNNConfig`, the two-tower recommender's :class:`RecsysConfig` and
+the paper's own workload, :class:`SubgraphConfig`.  The grids of cells the
+launch dry-run compiles come with the launch tooling (ROADMAP queue 1
+item 14b).
 """
 
 from __future__ import annotations
@@ -13,7 +15,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
-__all__ = ["LMConfig", "GNNConfig", "SubgraphConfig", "ShapeCell", "LM_SHAPES", "GNN_SHAPES"]
+__all__ = [
+    "LMConfig",
+    "GNNConfig",
+    "RecsysConfig",
+    "SubgraphConfig",
+    "ShapeCell",
+    "LM_SHAPES",
+    "GNN_SHAPES",
+    "RECSYS_SHAPES",
+]
 
 
 @dataclass(frozen=True)
@@ -108,6 +119,22 @@ class GNNConfig:
 
 
 @dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    embed_dim: int
+    tower_mlp: Tuple[int, ...]
+    interaction: str = "dot"
+    n_user_fields: int = 8
+    n_item_fields: int = 8
+    # per-field vocab sizes (huge sparse tables — the hot path)
+    user_vocab_sizes: Tuple[int, ...] = (50_000_000, 10_000_000, 1_000_000, 1_000_000, 100_000, 100_000, 10_000, 1_000)
+    item_vocab_sizes: Tuple[int, ...] = (100_000_000, 10_000_000, 1_000_000, 100_000, 100_000, 10_000, 10_000, 1_000)
+    multi_hot_per_field: int = 4  # EmbeddingBag bag size
+    temperature: float = 0.05
+    dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class SubgraphConfig:
     """The paper's own workload: a graph of ``n_vertices`` / ``n_edges`` and
     one tree template (``repro_torch.core.templates.get_template`` name)."""
@@ -127,7 +154,7 @@ class ShapeCell:
     """One (input-shape) column of the dry-run grid."""
 
     name: str
-    kind: str  # train | prefill | decode | full_graph | minibatch | molecule | ...
+    kind: str  # train | prefill | decode | serve | retrieval | full_graph | minibatch | molecule
     params: Dict[str, int] = field(default_factory=dict)
 
 
@@ -147,4 +174,11 @@ GNN_SHAPES: Tuple[ShapeCell, ...] = (
     ),
     ShapeCell("ogb_products", "full_graph", {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
     ShapeCell("molecule", "molecule", {"n_nodes": 30, "n_edges": 64, "batch": 128}),
+)
+
+RECSYS_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_batch", "train", {"batch": 65536}),
+    ShapeCell("serve_p99", "serve", {"batch": 512}),
+    ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
 )

@@ -1,47 +1,70 @@
-"""--arch registry of the port: architecture ids -> config modules.
+"""--arch registry of the port: architecture ids -> config modules and shape
+grids.
 
-The LMs (dense GQA, MLA, MoE), the GNNs (GCN, GAT, NequIP, MACE) and the
-paper's own workload (``subgraph2vec``, family ``"subgraph"``) are ported.  Asking for any other architecture of the
-reference's registry raises ``NotImplementedError`` naming the ROADMAP item
-that ports it; an id the reference does not know raises ``KeyError``.  The
-reference's shape grids (``SUBGRAPH_SHAPES``, ``shapes_for``,
-``all_cells``) serve its launch dry-run and come with the launch tooling
-(ROADMAP queue 1 item 14b).
+Every architecture of the reference's registry is ported: the LMs (dense
+GQA, MLA, MoE), the GNNs (GCN, GAT, NequIP, MACE), the two-tower
+recommender and the paper's own workload (``subgraph2vec``, family
+``"subgraph"``); an id the reference does not know raises ``KeyError``.
+``shapes_for`` and ``all_cells`` are the reference's (arch x shape) grid,
+in its order; the launch dry-run that compiles those cells comes with the
+launch tooling (ROADMAP queue 1 item 14b).
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
-__all__ = ["ARCHS", "get_arch"]
+from repro_torch.configs.base import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, ShapeCell
 
-# arch id -> (family, config module)
+__all__ = ["ARCHS", "get_arch", "shapes_for", "all_cells", "SUBGRAPH_SHAPES"]
+
+# arch id -> (family, config module), in the reference's order
 ARCHS: Dict[str, Tuple[str, str]] = {
+    "deepseek-v2-lite-16b": ("lm", "repro_torch.configs.deepseek_v2_lite_16b"),
+    "dbrx-132b": ("lm", "repro_torch.configs.dbrx_132b"),
     "nemotron-4-15b": ("lm", "repro_torch.configs.nemotron_4_15b"),
     "granite-8b": ("lm", "repro_torch.configs.granite_8b"),
     "granite-20b": ("lm", "repro_torch.configs.granite_20b"),
-    "deepseek-v2-lite-16b": ("lm", "repro_torch.configs.deepseek_v2_lite_16b"),
-    "dbrx-132b": ("lm", "repro_torch.configs.dbrx_132b"),
     "gat-cora": ("gnn", "repro_torch.configs.gat_cora"),
     "nequip": ("gnn", "repro_torch.configs.nequip"),
     "gcn-cora": ("gnn", "repro_torch.configs.gcn_cora"),
     "mace": ("gnn", "repro_torch.configs.mace"),
-    # the paper's own workload
+    "two-tower-retrieval": ("recsys", "repro_torch.configs.two_tower_retrieval"),
+    # the paper's own workload (extra cells beyond the assigned 40)
     "subgraph2vec": ("subgraph", "repro_torch.configs.subgraph2vec"),
 }
 
-# arch id of the reference's registry -> the ROADMAP item that ports it
-_NOT_PORTED: Dict[str, str] = {
-    "two-tower-retrieval": "ROADMAP queue 1 item 15b (recsys)",
-}
+# paper workloads: dataset x template (Table II / III / Fig 12 analogues)
+SUBGRAPH_SHAPES: Tuple[ShapeCell, ...] = (
+    ShapeCell("rmat1m_u12", "count", {"n_vertices": 1_000_000, "n_edges": 200_000_000, "k": 12}),
+    ShapeCell("rmat1m_u17", "count", {"n_vertices": 1_000_000, "n_edges": 200_000_000, "k": 17}),
+    ShapeCell("rmat1m_u20", "count", {"n_vertices": 1_000_000, "n_edges": 200_000_000, "k": 20}),
+    ShapeCell("gs22_u14", "count", {"n_vertices": 2_000_000, "n_edges": 128_000_000, "k": 14}),
+)
+
+_SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES, "subgraph": SUBGRAPH_SHAPES}
 
 
 def get_arch(arch: str):
     """Returns (family, config module)."""
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet: {_NOT_PORTED[arch]}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     family, module = ARCHS[arch]
     return family, importlib.import_module(module)
+
+
+def shapes_for(arch: str) -> Tuple[ShapeCell, ...]:
+    family, _ = ARCHS[arch]
+    return _SHAPES[family]
+
+
+def all_cells(include_subgraph: bool = False) -> List[Tuple[str, ShapeCell]]:
+    """The (arch x shape) dry-run grid: 40 assigned cells (+ paper cells)."""
+    cells = []
+    for arch, (family, _) in ARCHS.items():
+        if family == "subgraph" and not include_subgraph:
+            continue
+        for shape in _SHAPES[family]:
+            cells.append((arch, shape))
+    return cells

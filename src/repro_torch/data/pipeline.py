@@ -1,11 +1,10 @@
-"""Deterministic synthetic data: the LM token stream and the GNN graphs.
+"""Deterministic synthetic data: the LM token stream, the recsys click
+stream and the GNN graphs.
 
 Every batch is a pure function of its seed (and step), so a restarted job
 resumes the exact stream position, as bit-exact checkpoint/restart needs.
 The draws are the reference's numpy streams, in its order, so both
-packages see the same tokens and graphs.  The click stream of the
-reference's pipeline comes with the recsys model (ROADMAP queue 1 item
-15b).
+packages see the same tokens, clicks and graphs.
 """
 
 from __future__ import annotations
@@ -15,12 +14,12 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, RecsysConfig
 from repro_torch.core.graph import Graph, erdos_renyi_graph
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.message import GraphBatch
 
-__all__ = ["token_batches", "graph_batch_from_shape", "synthetic_cora"]
+__all__ = ["token_batches", "click_batches", "graph_batch_from_shape", "synthetic_cora"]
 
 
 def token_batches(cfg: LMConfig, batch: int, seq_len: int, seed: int = 0, start_step: int = 0,
@@ -40,6 +39,35 @@ def token_batches(cfg: LMConfig, batch: int, seq_len: int, seed: int = 0, start_
             toks = torch.as_tensor(np.minimum((u ** -0.7 - 1.0) * 20, cfg.vocab_size - 1)
                                    .astype(np.int64))
             yield toks[:, :-1].to(device), toks[:, 1:].to(device)
+            step += 1
+
+    return stream()
+
+
+def click_batches(cfg: RecsysConfig, batch: int, seed: int = 0, start_step: int = 0,
+                  device=None) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """``(user_idx, item_idx, log_q)`` per step with power-law item
+    popularity: int64 tensors of ``(batch, n_user_fields, bag)`` and
+    ``(batch, n_item_fields, bag)`` drawn over the config's vocab sizes, and
+    fp32 ``log_q`` (computed in float64), on ``device`` (``None``: the card;
+    raises here, not at the first batch, without one)."""
+    device = resolve_device(device)
+    n_uf, n_if, bag = cfg.n_user_fields, cfg.n_item_fields, cfg.multi_hot_per_field
+
+    def fields(u, sizes):
+        return np.stack([np.minimum((u[:, f] ** 2) * v, v - 1).astype(np.int64)
+                         for f, v in enumerate(sizes)], axis=1)
+
+    def stream():
+        step = start_step
+        while True:
+            rng = np.random.default_rng((seed, step))
+            u = rng.random((batch, n_uf, bag))
+            i = rng.random((batch, n_if, bag))
+            user_idx = fields(u, cfg.user_vocab_sizes[:n_uf])
+            item_idx = fields(i, cfg.item_vocab_sizes[:n_if])
+            log_q = np.log(1.0 / (1.0 + item_idx[:, 0, 0].astype(np.float64) + 1e-6)).astype(np.float32)
+            yield tuple(torch.as_tensor(a).to(device) for a in (user_idx, item_idx, log_q))
             step += 1
 
     return stream()

@@ -1,11 +1,11 @@
 """Carry state across from the JAX reference package.
 
 What the two packages must share to compare like with like: for counting,
-the graph and the colorings; for the LMs and GNNs, the parameters.  This
+the graph and the colorings; for the models, the parameters.  This
 module takes plain numpy arrays (never a ``repro`` object's methods), so
 the port still imports nothing of the reference; a caller holding a
 reference ``Graph`` passes its ``(n, src, dst)``, and one holding reference
-LM or GNN parameters passes ``jax.tree.map(np.asarray, params)``.
+LM, GNN or recsys parameters passes ``jax.tree.map(np.asarray, params)``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,13 @@ import torch
 
 from repro_torch.core.graph import Graph
 
-__all__ = ["graph_from_arrays", "colorings_to_tensor", "lm_params_from_numpy", "gnn_params_from_numpy"]
+__all__ = [
+    "graph_from_arrays",
+    "colorings_to_tensor",
+    "lm_params_from_numpy",
+    "gnn_params_from_numpy",
+    "recsys_params_from_numpy",
+]
 
 
 def graph_from_arrays(n: int, src, dst) -> Graph:
@@ -107,3 +113,18 @@ def gnn_params_from_numpy(params_np, cfg, device):
         path = "/".join(map(str, first))
         raise ValueError(f"{cfg.model} parameters need a weight at {path}") from e
     return _params_like(param_shapes(cfg, d_in), params_np, device)
+
+
+def recsys_params_from_numpy(params_np, cfg, device, vocab_scale: float = 1.0):
+    """The reference's two-tower parameter tree (from
+    ``repro.models.recsys.init_params(key, cfg, vocab_scale)``) as the
+    port's fp32 parameters on ``device``.
+
+    The tree must have exactly the keys and shapes of
+    :func:`repro_torch.models.recsys.param_shapes` for ``cfg`` and
+    ``vocab_scale``; anything else raises ``ValueError`` naming the first
+    offending path.
+    """
+    from repro_torch.models.recsys import param_shapes
+
+    return _params_like(param_shapes(cfg, vocab_scale), params_np, device)

@@ -1,6 +1,7 @@
 """Training launcher CLI.
 
-Runs a real training job for a registered LM or GNN arch on one device,
+Runs a real training job for a registered LM, GNN or recsys arch on one
+device,
 through the whole substrate: the config registry, the synthetic data,
 AdamW with global-norm clipping, checkpoint/restart and the straggler
 watchdog.  The train step is plain eager PyTorch: zero the gradients,
@@ -9,9 +10,12 @@ watchdog.  The train step is plain eager PyTorch: zero the gradients,
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b --smoke \\
       --steps 50 --batch 8 --seq-len 128 --ckpt-dir /tmp/ckpt [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch gcn-cora --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch two-tower-retrieval \
+      --smoke --steps 10 --device cpu
 
 Without ``--device`` the job runs on the CUDA card and fails without one.
-The recsys family comes with ROADMAP queue 1 item 15b.
+The multi-card launch tooling (the reference's dry-run over mesh cells)
+comes with ROADMAP queue 1 item 14b.
 """
 
 from __future__ import annotations
@@ -118,6 +122,40 @@ def make_gnn_job(cfg, batch: int, lr: float, device=None):
     return state, gnn_train_step(cfg, lr), data_factory
 
 
+def make_recsys_job(cfg, batch: int, lr: float, device=None):
+    """``(state, train_step, data_factory)`` of a two-tower job on
+    ``device`` (``None``: the card), as the reference's: parameters from
+    ``init_params(cfg, seed=0)``, AdamW with global-norm clipping at 1.0,
+    and ``click_batches(cfg, batch, seed=0)`` from the start step.  The
+    step is :func:`make_lm_job`'s: eager, updating the state in place."""
+    from repro_torch.data.pipeline import click_batches
+    from repro_torch.device import resolve_device
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw_init, adamw_update, clip_by_global_norm
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    device = resolve_device(device)
+    params = R.init_params(cfg, seed=0, device=device)
+    state = {"params": params, "opt": adamw_init(params)}
+
+    def train_step(state, batch_data):
+        uix, iix, log_q = batch_data
+        params = state["params"]
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+            p.grad = None
+        loss = R.loss_fn(params, cfg, uix, iix, log_q)
+        loss.backward()
+        grads, gnorm = clip_by_global_norm(tree_map(lambda p: p.grad, params), 1.0)
+        params, opt = adamw_update(grads, state["opt"], params, lr)
+        return {"params": params, "opt": opt}, {"loss": loss.detach(), "gnorm": gnorm}
+
+    def data_factory(start_step):
+        return click_batches(cfg, batch, seed=0, start_step=start_step, device=device)
+
+    return state, train_step, data_factory
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -134,12 +172,14 @@ def main(argv=None) -> int:
     from repro_torch.configs.registry import get_arch
     from repro_torch.train.loop import LoopConfig, TrainLoop
 
-    family, module = get_arch(args.arch)  # the recsys arch raises here
+    family, module = get_arch(args.arch)
     cfg = module.SMOKE_CONFIG if args.smoke else module.CONFIG
     if family == "lm":
         state, step, data = make_lm_job(cfg, args.batch, args.seq_len, args.lr, device=args.device)
     elif family == "gnn":
         state, step, data = make_gnn_job(cfg, args.batch, args.lr, device=args.device)
+    elif family == "recsys":
+        state, step, data = make_recsys_job(cfg, args.batch, args.lr, device=args.device)
     else:
         raise SystemExit(f"train launcher does not support family {family}")
 

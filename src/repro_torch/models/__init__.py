@@ -1,2 +1,3 @@
-"""Models of the port: the decoder LMs (``transformer``, ``layers``) and the
-GNNs (``gnn``: GCN, GAT, NequIP, MACE, the neighbour sampler)."""
+"""Models of the port: the decoder LMs (``transformer``, ``layers``), the
+GNNs (``gnn``: GCN, GAT, NequIP, MACE, the neighbour sampler) and the
+two-tower recommender (``recsys``)."""

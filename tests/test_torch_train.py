@@ -627,8 +627,9 @@ def test_launcher_resumes_from_its_checkpoint(tmp_path):
     second = _printed(launch.main, args + ["--steps", "20"])
     assert "resumed=True start_step=10" in second and "done 20 steps" in second
     assert sorted(os.listdir(tmp_path)) == ["step_00000010", "step_00000020"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        launch.main(["--arch", "two-tower-retrieval", "--device", "cpu"])
+    recsys = _printed(launch.main, ["--arch", "two-tower-retrieval", "--smoke", "--device", "cpu",
+                                    "--steps", "2"])
+    assert "family=recsys resumed=False start_step=0" in recsys and "done 2 steps" in recsys
     with pytest.raises(SystemExit, match="family subgraph"):
         launch.main(["--arch", "subgraph2vec", "--device", "cpu"])
 

@@ -212,6 +212,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    built in chunks, then p50/p99 per query of ``retrieval_scores`` and
    ``retrieval_topk``), each beside its bound.  The three kernel wrappers'
    counters must not move during the phase.
+8i. The launch tooling (``[launch]``): no kernel of the port runs here,
+   as none runs on the reference's dry-run cells (prefill and decode take
+   a cache, which takes ``_sdpa_chunked``; training has no flash
+   backward).  First the dry run's analysis of every cell of
+   ``all_cells(include_subgraph=True)`` on both production meshes, on
+   ``meta`` tensors in a CPU subprocess started with the script (its
+   records read here: one line per cell with its bottleneck, per-device GB
+   and ``fits_80GB``; any cell that fails fails the phase).  Then, in one
+   NCCL rank spawned by ``run_ranks``: granite-8b's ``train_4k`` cell's
+   own step at mesh (1, 1), at 1 and 2 layers and the per-device batch of
+   the single-pod mesh (16 x 4096; cut by halves only where the dry run
+   predicts more than ``LAUNCH_FIT_BYTES``, each cut printed), bitwise
+   equal to ``make_lm_job``'s single-device step (``loss_chunk=512``) on
+   the same seed and batch, bitwise on repeat, its ``FlopCounterMode``
+   count equal to the ``meta`` count; ms per step and peak memory at each
+   depth, their affine fit to 36 layers, predicted over measured bytes,
+   the step over the roofline's terms.  ``prefill_32k``'s step at 2
+   layers and the per-device batch (2 x 32768, bf16): its last-position
+   logits and caches bitwise equal to ``prefill``'s.  The ``vectorized``
+   eMA mode against ``loop`` through ``make_distributed_count_fn`` on u12
+   at R-MAT 2^17 (the widest stage's gathered operands 14.5 GB), within
+   1e-5.  The three kernel wrappers' counters must not move.
 9. Kernel A's wide path at full width (``[wide]``), once the LM weights
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
@@ -267,6 +289,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -477,6 +500,28 @@ RECSYS_BULK_REPS = 3
 RECSYS_CORPUS_CHUNK = 65536
 RECSYS_TOPK = 100
 RECSYS_LR = 3e-4
+#: [launch]: granite-8b's train_4k cell at mesh (1, 1), at the per-device
+#: batch of the single-pod mesh (256 sequences over 16 data ranks) and two
+#: depths; a batch is cut by halves only while the dry run predicts more
+#: than LAUNCH_FIT_BYTES on the card
+LAUNCH_TRAIN_BATCH, LAUNCH_SEQ = 16, 4096
+LAUNCH_DEPTHS = (1, 2)
+LAUNCH_FULL_DEPTH = 36
+LAUNCH_FIT_BYTES = 76e9
+LAUNCH_TIMED = 3
+#: [launch]: prefill_32k's per-device batch (32 sequences over 16 data
+#: ranks) at 2 layers
+LAUNCH_PREFILL_BATCH, LAUNCH_PREFILL_SEQ, LAUNCH_PREFILL_LAYERS = 2, 32768, 2
+#: [launch]: the vectorized eMA on u12 at R-MAT 2^LAUNCH_VEC_LOG_N (8 edges
+#: per vertex): its widest stage gathers two (n, 1, 924, 15) fp32 operands,
+#: n x 13,860 x 2 x 4 bytes (14.5 GB at 2^17)
+LAUNCH_VEC_LOG_N = 17
+LAUNCH_VEC_RTOL = 1e-5
+LAUNCH_TIMEOUT_S = 900.0
+LAUNCH_SWEEP_TIMEOUT_S = 1200.0
+#: the sweep's niceness: the counting phases before [launch] are partly
+#: host-bound, and the sweep needs only to finish before [launch]
+LAUNCH_SWEEP_NICE = 10
 
 
 def log(*args) -> None:
@@ -3056,6 +3101,356 @@ def recsys_path(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8i: the launch tooling
+# ---------------------------------------------------------------------------
+
+
+def start_launch_sweep(out_dir: str):
+    """Start the dry run of every cell on both meshes in a CPU subprocess
+    (``meta`` tensors, no card), at a lower scheduling priority than the
+    phases it runs beside; ``launch_sweep`` reads what it wrote."""
+    env = dict(os.environ, PYTHONPATH=str(HERE / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log_file = open(os.path.join(out_dir, "sweep.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+         "--include-subgraph", "--out", os.path.join(out_dir, "records")],
+        env=env, stdout=log_file, stderr=subprocess.STDOUT, cwd=str(HERE),
+        preexec_fn=lambda: os.nice(LAUNCH_SWEEP_NICE))
+    return {"proc": proc, "dir": out_dir, "t0": time.perf_counter(), "log": log_file}
+
+
+def stop_launch_sweep(sweep) -> None:
+    proc = sweep["proc"]
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=60)
+    sweep["log"].close()
+
+
+def launch_sweep(sweep) -> dict:
+    """Wait for the sweep, print one line per cell, and fail unless every
+    cell of ``all_cells(include_subgraph=True)`` was analysed on both
+    meshes."""
+    from repro_torch.configs.registry import all_cells
+
+    import re
+
+    proc = sweep["proc"]
+    rc = proc.wait(timeout=LAUNCH_SWEEP_TIMEOUT_S)
+    waited = time.perf_counter() - sweep["t0"]
+    sweep["log"].close()
+    out_log = Path(sweep["dir"], "sweep.log").read_text()
+    if rc != 0:
+        raise AssertionError(f"[launch] the dry run failed (exit {rc}):\n{out_log[-4000:]}")
+    seconds = float(re.search(r"ALL CELLS ANALYSED in ([0-9.]+) s", out_log)[1])
+    rows = []
+    for arch, shape in all_cells(include_subgraph=True):
+        for mesh_name in ("single", "multi"):
+            path = Path(sweep["dir"], "records", f"{arch}__{shape.name}__{mesh_name}.json")
+            if not path.is_file():
+                raise AssertionError(f"[launch] no dry-run record for {path.name}")
+            rec = json.loads(path.read_text())
+            gb = rec["per_device_memory_bytes"] / 1e9
+            log(f"[launch] cell {arch} {shape.name} {mesh_name}: {rec['bottleneck']} "
+                f"{gb:.2f} GB/device fits_80GB={rec['fits_80GB']} "
+                f"(compute {rec['compute_s']:.3e} s, memory {rec['memory_s']:.3e} s, "
+                f"collective {rec['collective_s']:.3e} s)")
+            rows.append({"cell": f"{arch}/{shape.name}/{mesh_name}", "bottleneck": rec["bottleneck"],
+                         "gb": gb, "fits_80GB": rec["fits_80GB"]})
+    log(f"[launch] dry run: {len(rows)} cells analysed in {seconds:.1f} s in its CPU subprocess, "
+        f"read {waited:.1f} s after it started")
+    return {"cells": len(rows), "s": seconds, "read_after_s": waited, "rows": rows,
+            "fit": sum(r["fits_80GB"] for r in rows)}
+
+
+def launch_train_cell(cfg, depth: int, batch: int):
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.mesh import AbstractMesh
+
+    shape = ShapeCell("train_4k", "train", {"seq_len": LAUNCH_SEQ, "global_batch": batch})
+    return build_cell("granite-8b", shape, AbstractMesh((1, 1), ("data", "model")),
+                      cfg_override=dataclasses.replace(cfg, n_layers=depth))
+
+
+def launch_batch(cfg) -> tuple:
+    """The per-device batch: the single-pod mesh's, halved while the dry
+    run's prediction at the deeper depth exceeds ``LAUNCH_FIT_BYTES``."""
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.mesh import AbstractMesh
+
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    batch, cuts = LAUNCH_TRAIN_BATCH, []
+    while True:
+        report, _ = analyze_cell(launch_train_cell(cfg, LAUNCH_DEPTHS[-1], batch), mesh, "one")
+        if report.per_device_memory_bytes <= LAUNCH_FIT_BYTES or batch == 1:
+            return batch, cuts
+        cuts.append({"batch": batch, "predicted_gb": report.per_device_memory_bytes / 1e9})
+        log(f"[launch] cut: batch {batch} x {LAUNCH_SEQ} predicted "
+            f"{report.per_device_memory_bytes / 1e9:.2f} GB > {LAUNCH_FIT_BYTES / 1e9:.0f} GB; "
+            f"halved")
+        batch //= 2
+
+
+def launch_calibrate(cfg, depth: int, batch: int, comm, device) -> dict:
+    """granite-8b's train_4k cell step at ``depth`` layers on this rank:
+    the gates against ``make_lm_job``'s step, the FLOP count against the
+    meta count, ms per step and peak memory against the dry run."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import sharded
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.launch.train import make_lm_job
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.tree import tree_leaves
+
+    cell = launch_train_cell(cfg, depth, batch)
+    report, counts = analyze_cell(cell, comm.mesh, "one")
+    # the single-device job at the cell step's learning rate and loss chunk
+    state, job_step, data = make_lm_job(dataclasses.replace(cfg, n_layers=depth), batch, LAUNCH_SEQ,
+                                        sharded.LR, device=device, loss_chunk=sharded.LOSS_CHUNK)
+    tokens, labels = next(iter(data(0)))
+    params = state["params"]
+    def host(t):
+        return t.detach().to("cpu", copy=True)
+
+    init = [host(p) for p in tree_leaves(params)]
+    state, metrics = job_step(state, (tokens, labels))
+    want_loss = host(metrics["loss"])
+    want = [host(p) for p in tree_leaves(params)]
+    del state, metrics
+
+    def reset():
+        with torch.no_grad():
+            for p, p0 in zip(tree_leaves(params), init):
+                p.copy_(p0)
+        return adamw_init(params)
+
+    runs = []
+    for _ in range(2):
+        opt = None
+        opt = reset()
+        params, opt, m = cell.fn(comm, params, opt, tokens, labels)
+        runs.append(([host(p) for p in tree_leaves(params)], host(m["loss"])))
+    bitwise = all(torch.equal(a, b) for a, b in zip(runs[0][0], want)) and \
+        torch.equal(runs[0][1], want_loss)
+    repeat = all(torch.equal(a, b) for a, b in zip(runs[1][0], runs[0][0])) and \
+        torch.equal(runs[1][1], runs[0][1])
+    del runs, want, init
+    with FlopCounterMode(display=False) as fc:
+        params, opt, m = cell.fn(comm, params, opt, tokens, labels)
+    card_flops = float(fc.get_total_flops())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    losses = []
+    start.record()
+    for _ in range(LAUNCH_TIMED):
+        params, opt, m = cell.fn(comm, params, opt, tokens, labels)
+        losses.append(m["loss"])
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / LAUNCH_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    out = {
+        "depth": depth, "batch": batch, "seq": LAUNCH_SEQ, "ms_per_step": ms, "peak_gb": peak / 1e9,
+        "predicted_gb": report.per_device_memory_bytes / 1e9,
+        "predicted_over_measured": report.per_device_memory_bytes / peak,
+        "meta_flops": counts["flops"], "card_flops": card_flops,
+        "model_flops": cell.model_flops,
+        "roofline_s": {"compute": report.compute_s, "memory": report.memory_s,
+                       "collective": report.collective_s},
+        "step_over_compute": ms / 1e3 / report.compute_s,
+        "step_over_memory": ms / 1e3 / report.memory_s,
+        "bottleneck": report.bottleneck,
+        "bitwise_vs_make_lm_job": bitwise, "repeat_bitwise": repeat,
+        "losses": [float(x) for x in losses],
+    }
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_prefill(cfg, comm, device) -> dict:
+    """prefill_32k's cell step at ``LAUNCH_PREFILL_LAYERS`` layers against
+    ``transformer.prefill`` on the same weights and tokens."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import analyze_cell
+    from repro_torch.models import transformer as T
+
+    cfg2 = dataclasses.replace(cfg, n_layers=LAUNCH_PREFILL_LAYERS)
+    b, s = LAUNCH_PREFILL_BATCH, LAUNCH_PREFILL_SEQ
+    cell = build_cell("granite-8b", ShapeCell("prefill_32k", "prefill",
+                                              {"seq_len": s, "global_batch": b}),
+                      comm.mesh, cfg_override=cfg2)
+    report, counts = analyze_cell(cell, comm.mesh, "one")
+    params = T.init_params(cfg2, seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, cfg2.vocab_size, (b, s), generator=gen, device=device)
+    logits, want_caches = T.prefill(params, cfg2, tokens, T.init_kv_cache(cfg2, b, s, device=device))
+    want = logits[:, -1].clone()
+    del logits
+    torch.cuda.empty_cache()
+    caches = T.init_kv_cache(cfg2, b, s, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got, caches = cell.fn(comm, params, caches, tokens)
+    stop.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bitwise = torch.equal(got, want) and all(
+        torch.equal(a[k], w[k]) for a, w in zip(caches, want_caches) for k in a)
+    out = {"layers": LAUNCH_PREFILL_LAYERS, "batch": b, "seq": s, "dtype": cfg2.dtype,
+           "ms": start.elapsed_time(stop), "peak_gb": peak / 1e9,
+           "predicted_gb": report.per_device_memory_bytes / 1e9,
+           "predicted_over_measured": report.per_device_memory_bytes / peak,
+           "meta_flops": counts["flops"], "bottleneck": report.bottleneck,
+           "roofline_s": {"compute": report.compute_s, "memory": report.memory_s},
+           "bitwise_vs_prefill": bitwise, "finite": bool(torch.isfinite(got.float()).all())}
+    del params, caches, want_caches, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_vectorized(device) -> dict:
+    """u12's one-coloring mesh count, ``vectorized`` against ``loop``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.counting import build_counting_plan
+    from repro_torch.core.distributed import make_distributed_count_fn, shard_graph
+    from repro_torch.core.graph import rmat_graph
+    from repro_torch.core.templates import get_template
+
+    n = 1 << LAUNCH_VEC_LOG_N
+    graph = rmat_graph(n, 8 * n, seed=1)
+    plan = build_counting_plan(get_template("u12"))
+    widest = max(t.n_out * t.n_splits for t in plan.tables if t is not None)
+    sg = shard_graph(graph, dist.get_world_size())
+    colors = np.random.default_rng(3).integers(0, plan.k, sg.n_padded).astype(np.int32)
+    out = {"n": n, "directed_edges": int(graph.num_directed),
+           "widest_gather_gb": 2 * sg.n_padded * widest * 4 / 1e9}
+    for mode, cb in (("vectorized", None), ("loop", 128)):
+        fn = make_distributed_count_fn(plan, dist.group.WORLD, sg.n_padded, sg.edges_per_shard,
+                                       column_batch=cb, ema_mode=mode, device=device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        total = float(fn(colors, sg.src, sg.dst_local, sg.edge_mask))
+        torch.cuda.synchronize()
+        out[mode] = {"total": total, "s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del fn
+        torch.cuda.empty_cache()
+    v, lp = out["vectorized"]["total"], out["loop"]["total"]
+    out["rel_diff"] = abs(v - lp) / abs(lp) if lp else float("inf")
+    return out
+
+
+def launch_rank(rank, world, device_type) -> dict:
+    """The card half of ``[launch]`` (one rank that ``run_ranks`` spawned):
+    the train and prefill cells on mesh (1, 1), then the vectorized eMA."""
+    import torch
+
+    from repro_torch.configs.granite_8b import CONFIG
+    from repro_torch.launch.mesh import AbstractMesh, realize_mesh
+    from repro_torch.launch.sharded import Comm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda" \
+        else torch.device("cpu")
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    comm = Comm(mesh, rank, realize_mesh(mesh, device.type))
+    before = wrapper_launches()
+    batch, cuts = launch_batch(CONFIG)
+    train = [launch_calibrate(CONFIG, depth, batch, comm, device) for depth in LAUNCH_DEPTHS]
+    prefill = launch_prefill(CONFIG, comm, device)
+    vectorized = launch_vectorized(device)
+    after = wrapper_launches()
+    return {"train": train, "cuts": cuts, "prefill": prefill, "vectorized": vectorized,
+            "launches": {k: after[k] - before[k] for k in after}, "collectives": len(comm.log)}
+
+
+def launch_path(device, sweep) -> dict:
+    """Phase 8i (``[launch]``): the dry run's records, then the card half in
+    one NCCL rank, its gates, and the probe's fit to full depth."""
+    import torch
+
+    from repro_torch.launch.probes import affine_fit
+    from repro_torch.testing.ranks import run_ranks
+
+    t_start = time.perf_counter()
+    before = wrapper_launches()
+    out = {"card": card_line(), "sweep": launch_sweep(sweep)}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rank = run_ranks(launch_rank, 1, args=(device.type,),
+                     backend="nccl" if device.type == "cuda" else "gloo",
+                     timeout_s=LAUNCH_TIMEOUT_S)[0]
+    out.update(rank, rank_wall_s=time.perf_counter() - t0)
+    for rec in out["train"]:
+        log(f"[launch] train_4k L={rec['depth']} b={rec['batch']}x{rec['seq']}: "
+            f"{rec['ms_per_step']:.1f} ms/step, peak {rec['peak_gb']:.2f} GB, predicted "
+            f"{rec['predicted_gb']:.2f} GB ({rec['predicted_over_measured']:.3f} of measured), "
+            f"step over roofline compute {rec['step_over_compute']:.2f}x memory "
+            f"{rec['step_over_memory']:.2f}x ({rec['bottleneck']}-bound), FLOPs card "
+            f"{rec['card_flops']:.6e} meta {rec['meta_flops']:.6e}, bitwise vs make_lm_job "
+            f"{rec['bitwise_vs_make_lm_job']}, repeat {rec['repeat_bitwise']}")
+        if rec["card_flops"] != rec["meta_flops"]:
+            raise AssertionError(f"[launch] L={rec['depth']}: FlopCounterMode on the card "
+                                 f"{rec['card_flops']} != the meta count {rec['meta_flops']}")
+        if not rec["bitwise_vs_make_lm_job"]:
+            raise AssertionError(f"[launch] L={rec['depth']}: the one-rank sharded step differs "
+                                 "from make_lm_job's single-device step")
+        if not rec["repeat_bitwise"]:
+            raise AssertionError(f"[launch] L={rec['depth']}: a repeat of the step differs")
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            raise AssertionError(f"[launch] L={rec['depth']}: a loss is not finite {rec['losses']}")
+    (l1, t1), (l2, t2) = [(r["depth"], r) for r in out["train"]]
+    out["fit_36"] = {
+        "ms_per_step": affine_fit(l1, t1["ms_per_step"], l2, t2["ms_per_step"], LAUNCH_FULL_DEPTH),
+        "peak_gb": affine_fit(l1, t1["peak_gb"], l2, t2["peak_gb"], LAUNCH_FULL_DEPTH),
+        "predicted_gb": affine_fit(l1, t1["predicted_gb"], l2, t2["predicted_gb"],
+                                   LAUNCH_FULL_DEPTH),
+    }
+    log(f"[launch] affine fit to {LAUNCH_FULL_DEPTH} layers (L={l1},{l2}): "
+        f"{out['fit_36']['ms_per_step']:.1f} ms/step, peak {out['fit_36']['peak_gb']:.2f} GB "
+        f"(dry run {out['fit_36']['predicted_gb']:.2f} GB) at b={t1['batch']}x{LAUNCH_SEQ}")
+    pf = out["prefill"]
+    log(f"[launch] prefill_32k L={pf['layers']} b={pf['batch']}x{pf['seq']} {pf['dtype']}: "
+        f"{pf['ms']:.1f} ms, peak {pf['peak_gb']:.2f} GB, predicted {pf['predicted_gb']:.2f} GB "
+        f"({pf['predicted_over_measured']:.3f} of measured), bitwise vs prefill "
+        f"{pf['bitwise_vs_prefill']}")
+    if not pf["bitwise_vs_prefill"] or not pf["finite"]:
+        raise AssertionError(f"[launch] prefill_32k's step differs from prefill: {pf}")
+    vec = out["vectorized"]
+    log(f"[launch] vectorized eMA u12 n={vec['n']}: total {vec['vectorized']['total']:.6e} "
+        f"({vec['vectorized']['s']:.2f} s, peak {vec['vectorized']['peak_gb']:.2f} GB) vs loop "
+        f"{vec['loop']['total']:.6e} ({vec['loop']['s']:.2f} s), rel diff {vec['rel_diff']:.2e}, "
+        f"widest gather {vec['widest_gather_gb']:.2f} GB")
+    if not (math.isfinite(vec["vectorized"]["total"]) and vec["rel_diff"] <= LAUNCH_VEC_RTOL):
+        raise AssertionError(f"[launch] vectorized != loop: {vec}")
+    after = wrapper_launches()
+    out["launches"] = {k: after[k] - before[k] + out["launches"][k] for k in after}
+    if any(out["launches"].values()):
+        raise AssertionError(f"[launch] the launch path launched a port kernel: {out['launches']}")
+    if out["collectives"]:
+        raise AssertionError(f"[launch] mesh (1, 1) logged {out['collectives']} collectives")
+    out["s"] = time.perf_counter() - t_start
+    log(f"[launch] card {out['card']} launches {json.dumps(out['launches'])} in {out['s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 9: kernel A's wide path at full width
 # ---------------------------------------------------------------------------
 
@@ -3537,13 +3932,16 @@ def main(argv=None) -> int:
     # likewise one memory-model file, written only by the last phase
     # ([memory]): every engine before it prices with the uncalibrated model
     os.environ["REPRO_FUSION_SLACK_BENCH"] = os.path.join(tune_dir, "BENCH_counting.json")
+    # [launch]'s dry run of every cell runs on the CPU beside the other phases
+    sweep = start_launch_sweep(tune_dir)
     try:
-        return run(args, device)
+        return run(args, device, sweep)
     finally:
+        stop_launch_sweep(sweep)
         shutil.rmtree(tune_dir, ignore_errors=True)
 
 
-def run(args, device) -> int:
+def run(args, device, sweep) -> int:
     import torch
 
     t_start = time.perf_counter()
@@ -3624,6 +4022,8 @@ def run(args, device) -> int:
     log(f"[time] gnn phase done at {time.perf_counter() - t_start:.1f} s")
     recsys = recsys_path(device)
     log(f"[time] recsys phase done at {time.perf_counter() - t_start:.1f} s")
+    launch = launch_path(device, sweep)
+    log(f"[time] launch phase done at {time.perf_counter() - t_start:.1f} s")
 
     # the LM weights and every earlier engine are freed: the wide cells'
     # 41.7 and 46.4 GB of DP state fit beside nothing else
@@ -3657,7 +4057,8 @@ def run(args, device) -> int:
                               "frontend": front["launches"]["spmm_ema"],
                               "wide": wide["launches"]["spmm_ema"],
                               "gnn": gnn["launches"]["spmm_ema"],
-                              "recsys": recsys["launches"]["spmm_ema"]}),
+                              "recsys": recsys["launches"]["spmm_ema"],
+                              "launch": launch["launches"]["spmm_ema"]}),
         # times: one launch at each bag width of the motif path (its
         # launches), the widths of one coloring and the n=2^20 widths in
         # "shapes" only
@@ -3674,7 +4075,8 @@ def run(args, device) -> int:
                              "tune": tuned["launches"]["spmm_blocked"],
                              "frontend": front["launches"]["spmm_blocked"],
                              "gnn": gnn["launches"]["spmm_blocked"],
-                             "recsys": recsys["launches"]["spmm_blocked"]}),
+                             "recsys": recsys["launches"]["spmm_blocked"],
+                             "launch": launch["launches"]["spmm_blocked"]}),
         # times: one launch at granite-8b's forward shape (b=4, s=4096),
         # which the bf16 forward launches once per layer (the fp32 gate
         # forward runs flash_attention.cu, checked by the logits gate); the
@@ -3690,7 +4092,8 @@ def run(args, device) -> int:
                               "train": train["run"]["flash_launches"],
                               "train_flash_refusal": train["gates"]["flash_refusal_launches"],
                               "gnn": gnn["launches"]["flash_attention"],
-                              "recsys": recsys["launches"]["flash_attention"]},
+                              "recsys": recsys["launches"]["flash_attention"],
+                              "launch": launch["launches"]["flash_attention"]},
             fp32_source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3702,7 +4105,7 @@ def run(args, device) -> int:
              "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
              "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,
-             "train": train, "gnn": gnn, "recsys": recsys, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
+             "train": train, "gnn": gnn, "recsys": recsys, "launch": launch, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},
             indent=1))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

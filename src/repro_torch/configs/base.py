@@ -5,9 +5,9 @@ Each ported architecture is a module in ``repro_torch.configs`` exporting
 ``CONFIG`` (the published configuration) and ``SMOKE_CONFIG`` (a reduced
 same-family config for CPU tests): the LMs' :class:`LMConfig`, the GNNs'
 :class:`GNNConfig`, the two-tower recommender's :class:`RecsysConfig` and
-the paper's own workload, :class:`SubgraphConfig`.  The grids of cells the
-launch dry-run compiles come with the launch tooling (ROADMAP queue 1
-item 14b).
+the paper's own workload, :class:`SubgraphConfig`.  The shape grids are
+the cells the launch dry run analyses (``repro_torch.launch.cells`` and
+``python -m repro_torch.launch.dryrun``).
 """
 
 from __future__ import annotations

@@ -6,8 +6,7 @@ GQA, MLA, MoE), the GNNs (GCN, GAT, NequIP, MACE), the two-tower
 recommender and the paper's own workload (``subgraph2vec``, family
 ``"subgraph"``); an id the reference does not know raises ``KeyError``.
 ``shapes_for`` and ``all_cells`` are the reference's (arch x shape) grid,
-in its order; the launch dry-run that compiles those cells comes with the
-launch tooling (ROADMAP queue 1 item 14b).
+in its order, the cells ``python -m repro_torch.launch.dryrun`` analyses.
 """
 
 from __future__ import annotations

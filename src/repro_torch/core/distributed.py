@@ -53,6 +53,7 @@ __all__ = [
     "build_streamed_tables",
     "make_batched_count_fn",
     "make_distributed_count_fn",
+    "distributed_input_specs",
 ]
 
 
@@ -393,13 +394,18 @@ def make_batched_count_fn(
         shared across plans by rooted canonical form.
       mesh: a 1-D ``DeviceMesh`` or a ``ProcessGroup`` (:func:`resolve_group`).
       n_padded / edges_per_shard: the :class:`ShardedGraph` geometry.
-      column_batch: passive columns all-gathered per collective.
+      column_batch: passive columns all-gathered per collective; ``None``
+        gathers a state's whole width at once (not with ``"streamed"``;
+        states are then padded to 128 columns, as the reference pads).
       ema_mode: ``"streamed"`` (every gathered column batch is consumed at
         once by the eMA entries that read it; ``B`` never exists) or
         ``"loop"`` (the paper's Algorithm 5: the batched SpMM into ``B``,
-        then the eMA; ``B`` memoised per passive canonical form).  The
-        reference's ``"vectorized"`` probe mode serves XLA's cost analysis
-        and waits for the launch tooling (ROADMAP queue 1 item 14b).
+        then the eMA; ``B`` memoised per passive canonical form) or
+        ``"vectorized"`` (the reference's probe mode: ``B`` as in
+        ``"loop"``, then each stage's eMA as one gather-FMA over all its
+        splits, ``einsum("rbos,rbos->rbo")`` of ``index_select``s of
+        ``M_a`` and ``B``; the launch tooling's subgraph probe cells use
+        it).
       gather_dtype: wire dtype of the all-gather and the ring (e.g.
         ``torch.bfloat16``); accumulation stays fp32.
       canons / plan_ir: the DP schedule (canonical sharing and liveness);
@@ -429,17 +435,14 @@ def make_batched_count_fn(
     ks = {p.k for p in plans}
     if len(ks) != 1:
         raise ValueError(f"all plans must share one k, got {sorted(ks)}")
-    if ema_mode == "vectorized":
-        raise NotImplementedError(
-            "ema_mode='vectorized' is the reference's XLA cost-analysis probe "
-            "mode; it waits for the launch tooling (ROADMAP queue 1 item 14b)"
-        )
-    if ema_mode not in ("streamed", "loop"):
+    if ema_mode not in ("streamed", "loop", "vectorized"):
         raise ValueError(f"unknown ema_mode {ema_mode!r}")
     if comm_mode not in ("blocking", "pipelined"):
         raise ValueError(f"unknown comm_mode {comm_mode!r}")
-    if column_batch is None or column_batch < 1:
-        raise ValueError(f"column_batch must be a positive int, got {column_batch!r}")
+    if column_batch is None and ema_mode == "streamed":
+        raise ValueError("ema_mode='streamed' needs a finite column_batch")
+    if column_batch is not None and column_batch < 1:
+        raise ValueError(f"column_batch must be a positive int or None, got {column_batch!r}")
     comm = MeshComm(resolve_group(mesh))
     n_shards = comm.size
     if n_padded % n_shards:
@@ -474,7 +477,7 @@ def make_batched_count_fn(
         free_at = plan_ir.liveness(track_products=track_products)
     rows = n_padded // n_shards
     if ema_block is None:
-        ema_block = max(1, (n_padded + edges_per_shard) * column_batch // (2 * rows))
+        ema_block = max(1, (n_padded + edges_per_shard) * (column_batch or 128) // (2 * rows))
     return BatchedCount(
         plans=tuple(plans),
         canons=tuple(tuple(c) for c in canons),
@@ -482,7 +485,7 @@ def make_batched_count_fn(
         comm=comm,
         n_padded=n_padded,
         edges_per_shard=edges_per_shard,
-        column_batch=int(column_batch),
+        column_batch=column_batch,
         ema_mode=ema_mode,
         gather_dtype=gather_dtype,
         store_dtype=store_dtype,
@@ -507,6 +510,7 @@ class BatchedCount:
         self.n_shards, self.rank = comm.size, comm.rank
         self.rows = n_padded // comm.size
         self.column_batch, self.ema_mode = column_batch, ema_mode
+        self.pad_unit = column_batch or 128
         self.gather_dtype = gather_dtype
         self.store_dtype, self.accum_dtype = store_dtype, accum_dtype
         self.comm_mode, self.comm_schedule = comm_mode, comm_schedule
@@ -613,8 +617,12 @@ class BatchedCount:
 
     def spmm_batched(self, m_p, buckets) -> torch.Tensor:
         """Column-batched all-gather SpMM of the whole ``(rows, B, C_pad)``
-        passive state, in accum dtype (the ``loop`` eMA mode's ``B``)."""
+        passive state, in accum dtype (the ``loop`` and ``vectorized`` eMA
+        modes' ``B``); one gather of the whole width without a column
+        batch."""
         cb = self.column_batch
+        if cb is None:
+            return self._spmm_blocking(m_p, buckets)
         return torch.cat([
             self._spmm_blocking(m_p[:, :, lo:lo + cb], buckets)
             for lo in range(0, m_p.shape[2], cb)
@@ -626,7 +634,7 @@ class BatchedCount:
         """A stage's zeroed accumulator, already padded to the column batch:
         in fp32 it becomes the stored state without a padded copy beside
         it (the pad columns stay zero)."""
-        return torch.zeros((self.rows, bsz, _pad_cols(n_out, self.column_batch)),
+        return torch.zeros((self.rows, bsz, _pad_cols(n_out, self.pad_unit)),
                            dtype=self.accum_dtype, device=device)
 
     def _fma(self, m_s, m_a, bcol, outs, ia, ip) -> None:
@@ -660,6 +668,16 @@ class BatchedCount:
             del bcol
         return m_s
 
+    def ema_vectorized(self, m_a, b, idx_a, idx_p) -> torch.Tensor:
+        """The whole stage's eMA as one gather-FMA over its ``(outputs,
+        splits)`` tables: ``(rows, B, n_out)``, in accum dtype."""
+        shape = (m_a.shape[0], m_a.shape[1]) + tuple(idx_a.shape)
+        return torch.einsum(
+            "rbos,rbos->rbo",
+            m_a.index_select(2, idx_a.reshape(-1)).view(shape).to(self.accum_dtype),
+            b.index_select(2, idx_p.reshape(-1)).view(shape),
+        )
+
     def ema_loop(self, m_a, b, idx_a, idx_p) -> torch.Tensor:
         """Vertex-local eMA over the fused ``(rows, B, C)`` state
         (Algorithm 5), one split at a time."""
@@ -676,7 +694,7 @@ class BatchedCount:
         colors_batch = torch.as_tensor(colors_batch, device=self.device)
         lo = self.rank * self.rows
         local = colors_batch[:, lo:lo + self.rows].long()
-        cb = self.column_batch
+        cb = self.pad_unit
 
         def pad_c(m):
             c = m.shape[-1]
@@ -716,7 +734,8 @@ class BatchedCount:
                         p_key = pc[sub.passive]
                         if p_key not in prods:
                             prods[p_key] = self.spmm_batched(m_p, buckets)
-                        m_s = self.ema_loop(m_a, prods[p_key], *tables)
+                        ema = self.ema_vectorized if self.ema_mode == "vectorized" else self.ema_loop
+                        m_s = ema(m_a, prods[p_key], *tables)
                     slots[ckey] = pad_c(m_s.to(self.store_dtype))
                 free(pos, slots, prods)
                 pos += 1
@@ -758,3 +777,16 @@ def make_distributed_count_fn(
         return batched(colors[None, :], src, dst_local, edge_mask)[0, 0]
 
     return count
+
+
+def distributed_input_specs(n_padded: int, n_shards: int, edges_per_shard: int):
+    """The one-coloring distributed count's arguments as ``meta`` tensors:
+    colors ``(n_padded,)`` int32, and the global src, local dst and edge
+    mask ``(n_shards * edges_per_shard,)`` (int32, int32, fp32)."""
+    e_total = n_shards * edges_per_shard
+    return (
+        torch.empty((n_padded,), dtype=torch.int32, device="meta"),
+        torch.empty((e_total,), dtype=torch.int32, device="meta"),
+        torch.empty((e_total,), dtype=torch.int32, device="meta"),
+        torch.empty((e_total,), dtype=torch.float32, device="meta"),
+    )

@@ -14,8 +14,8 @@ watchdog.  The train step is plain eager PyTorch: zero the gradients,
       --smoke --steps 10 --device cpu
 
 Without ``--device`` the job runs on the CUDA card and fails without one.
-The multi-card launch tooling (the reference's dry-run over mesh cells)
-comes with ROADMAP queue 1 item 14b.
+The mesh cells of the multi-card tooling (sharded steps, the dry run) are
+``repro_torch.launch.cells`` and ``python -m repro_torch.launch.dryrun``.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import sys
 import time
 
 
-def make_lm_job(cfg, batch: int, seq_len: int, lr: float, device=None):
+def make_lm_job(cfg, batch: int, seq_len: int, lr: float, device=None, loss_chunk: int = 0):
     """``(state, train_step, data_factory)`` of an LM job on ``device``
     (``None``: the card): ``state`` is ``{"params", "opt"}`` (fp32
     parameters from ``init_params(cfg, seed=0)`` and their AdamW state),
@@ -33,7 +33,8 @@ def make_lm_job(cfg, batch: int, seq_len: int, lr: float, device=None):
     "gnorm"})`` with the state updated in place, and ``data_factory(step)``
     is the token stream from ``step`` on.  A caller may put other
     parameters into ``state`` (with ``adamw_init`` of them) before the
-    first step."""
+    first step.  ``loss_chunk`` is ``loss_fn``'s (the launch tooling's
+    cells use 512)."""
     from repro_torch.data.pipeline import token_batches
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
@@ -50,7 +51,7 @@ def make_lm_job(cfg, batch: int, seq_len: int, lr: float, device=None):
         for p in tree_leaves(params):
             p.requires_grad_(True)
             p.grad = None
-        loss = T.loss_fn(params, cfg, tokens, labels)
+        loss = T.loss_fn(params, cfg, tokens, labels, loss_chunk=loss_chunk)
         loss.backward()
         grads, gnorm = clip_by_global_norm(tree_map(lambda p: p.grad, params), 1.0)
         params, opt = adamw_update(grads, state["opt"], params, lr)

@@ -2,8 +2,9 @@
 tensor-product regime) with one init/forward/loss interface.
 
 The reference's ``node_spec`` / ``chan_spec`` arguments are pjit sharding
-hints; on one device they have no counterpart, and the sharded layouts come
-with the launch tooling (ROADMAP queue 1 item 14b).
+hints; the forwards here take no layout argument.  The launch tooling's GNN
+cells (``repro_torch.launch.cells``) carry the reference's layout choice as
+data in their ``meta``, and the dry run prices it analytically.
 """
 
 from __future__ import annotations

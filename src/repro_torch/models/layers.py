@@ -147,14 +147,23 @@ def attention_apply(
     positions: torch.Tensor,  # (s,)
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index=None,
+    seq_gather=None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Causal self-attention.  With ``cache`` (decode), ``x`` is the new-token
     slice and ``cache_index`` the write offset.  Unlike the reference, the
     cache is updated in place (it is the serving engine's largest buffer);
     the updated cache is returned as in the reference.  MLA ignores
-    ``cfg.attn_impl``, as the reference does."""
+    ``cfg.attn_impl``, as the reference does.
+
+    ``seq_gather`` is sequence parallelism (``repro_torch.launch.sharded``):
+    ``x`` is this device's slice of the sequence at global ``positions``,
+    and ``seq_gather(t)`` returns the whole sequence of a ``(b, s_local,
+    ...)`` tensor.  Keys and values (MLA: the latents), or with a cache the
+    cache as long as the prompt, are gathered before attention; every
+    gathered position is valid, and the causal mask compares global
+    positions."""
     if cfg.attention == "mla":
-        return _mla_apply(params, cfg, x, positions, cache, cache_index)
+        return _mla_apply(params, cfg, x, positions, cache, cache_index, seq_gather)
     b, s, d = x.shape
     e = cfg.d_head
 
@@ -171,7 +180,14 @@ def attention_apply(
         cache["k"][:, idx: idx + s] = k.to(cache["k"].dtype)
         cache["v"][:, idx: idx + s] = v.to(cache["v"].dtype)
         new_cache = cache
-        out = _sdpa_chunked(q, cache["k"], cache["v"], positions, idx + s, causal=True,
+        if seq_gather is None:
+            out = _sdpa_chunked(q, cache["k"], cache["v"], positions, idx + s, causal=True,
+                                q_chunk=cfg.attn_q_chunk)
+        else:
+            out = _sdpa_chunked(q, seq_gather(cache["k"]), seq_gather(cache["v"]), positions, None,
+                                causal=True, q_chunk=cfg.attn_q_chunk)
+    elif seq_gather is not None:
+        out = _sdpa_chunked(q, seq_gather(k), seq_gather(v), positions, None, causal=True,
                             q_chunk=cfg.attn_q_chunk)
     elif cfg.attn_impl == "flash":
         from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -183,7 +199,7 @@ def attention_apply(
     return out, new_cache
 
 
-def _mla_apply(params: Params, cfg: LMConfig, x, positions, cache, cache_index):
+def _mla_apply(params: Params, cfg: LMConfig, x, positions, cache, cache_index, seq_gather=None):
     """DeepSeek-V2 Multi-head Latent Attention.
 
     Only the latent ``c_kv`` (kv_lora_rank) and one rope key shared by the
@@ -210,6 +226,8 @@ def _mla_apply(params: Params, cfg: LMConfig, x, positions, cache, cache_index):
         cache["c_kv"][:, idx: idx + s] = c_kv.to(cache["c_kv"].dtype)
         cache["k_rope"][:, idx: idx + s] = k_rope.to(cache["k_rope"].dtype)
         new_cache, kv_len, c_all, r_all = cache, idx + s, cache["c_kv"], cache["k_rope"]
+    if seq_gather is not None:
+        kv_len, c_all, r_all = None, seq_gather(c_all), seq_gather(r_all)
     # products with the cache run in the promoted dtype, as the reference's
     # mixed-dtype einsums do (the same dtype unless the cache was made in
     # another)

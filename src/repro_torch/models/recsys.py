@@ -18,8 +18,9 @@ Components:
   * ``retrieval_scores``   — one query against N candidates (batched dot).
   * ``retrieval_topk``     — ``lax.top_k``: ties go to the lower index.
 
-The reference's ``param_pspecs`` (row-sharded tables over a mesh) comes with
-the launch tooling (ROADMAP queue 1 item 14b).
+``param_pspecs`` gives the reference's placement on a mesh: tables
+row-sharded over every axis, towers replicated (the launch tooling's
+recsys cells, ``repro_torch.launch.cells``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.core.sharding import P
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn.message import Segments
 
@@ -43,6 +45,7 @@ __all__ = [
     "serve_scores",
     "retrieval_scores",
     "retrieval_topk",
+    "param_pspecs",
 ]
 
 
@@ -243,3 +246,19 @@ def retrieval_topk(scores: torch.Tensor, k: int = 100):
     position = torch.arange(n, device=scores.device, dtype=torch.int64)
     _, idx = torch.topk(ordered * (1 << 32) + (n - 1 - position), k)
     return torch.gather(scores, -1, idx), idx
+
+
+def param_pspecs(cfg: RecsysConfig, dp=()) -> Dict:
+    """Vocabulary (row) sharded tables over every mesh axis, model-major
+    (``("model",) + dp``); towers replicated."""
+    rows = ("model",) + tuple(dp)
+
+    def tower_specs(layers):
+        return [{"w": P(None, None), "b": P(None)} for _ in layers]
+
+    return {
+        "user_tables": [P(rows, None) for _ in cfg.user_vocab_sizes],
+        "item_tables": [P(rows, None) for _ in cfg.item_vocab_sizes],
+        "user_tower": tower_specs(cfg.tower_mlp),
+        "item_tower": tower_specs(cfg.tower_mlp),
+    }

@@ -7,8 +7,10 @@ feed-forward (dbrx-132b, deepseek-v2-lite-16b after its dense first
 layer); the cache-free forward (whose GQA attention is the flash kernel
 when ``cfg.attn_impl == "flash"``; that kernel has no backward, as in the
 reference), the next-token loss with per-layer activation checkpointing
-(``cfg.remat``), and cache prefill / decode.  The pjit partition specs
-come with the launch tooling (ROADMAP queue 1 item 14b).
+(``cfg.remat``), and cache prefill / decode; the partition specs of the
+parameters and caches on a ``(data, model)`` mesh (``param_pspecs``,
+``kv_cache_pspecs``), which the launch tooling's sharded steps
+(``repro_torch.launch.sharded``) place them at.
 
 Parameters keep the reference's layout: a dict with ``embed``,
 ``final_norm``, ``unembed`` and ``groups``, a list with one dict per
@@ -22,6 +24,7 @@ Entry points:
   * ``loss_fn(params, cfg, tokens, labels)``
   * ``init_kv_cache(cfg, batch, max_len)`` / ``kv_cache_shapes``
   * ``prefill`` / ``decode_step`` (update the caches in place)
+  * ``param_pspecs(cfg, model_size)`` / ``kv_cache_pspecs(cfg, dp_axes)``
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.core.sharding import P
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
@@ -47,6 +51,8 @@ __all__ = [
     "prefill",
     "decode_step",
     "layer_groups",
+    "param_pspecs",
+    "kv_cache_pspecs",
 ]
 
 Params = Dict
@@ -122,9 +128,11 @@ def param_shapes(cfg: LMConfig) -> Params:
     return init_params(cfg, device="meta")
 
 
-def _layer_apply(cfg: LMConfig, moe: bool, layer: Params, x, positions, cache, cache_index):
+def _layer_apply(cfg: LMConfig, moe: bool, layer: Params, x, positions, cache, cache_index,
+                 seq_gather=None):
     h, new_cache = L.attention_apply(
-        layer["attn"], cfg, L.rmsnorm(x, layer["attn_norm"], cfg.norm_eps), positions, cache, cache_index
+        layer["attn"], cfg, L.rmsnorm(x, layer["attn_norm"], cfg.norm_eps), positions, cache,
+        cache_index, seq_gather=seq_gather,
     )
     x = x + h
     hn = L.rmsnorm(x, layer["ffn_norm"], cfg.norm_eps)
@@ -207,7 +215,13 @@ def loss_fn(params: Params, cfg: LMConfig, tokens, labels, loss_chunk: int = 0) 
     reference's ``lax.map`` over chunks)."""
     labels = torch.as_tensor(labels, device=params["embed"].device).long()
     x, aux, _ = forward(params, cfg, tokens, return_hidden=True)
-    unembed, s = _unembed(params), labels.shape[1]
+    return _mean_nll(x, _unembed(params), labels, loss_chunk) + aux
+
+
+def _mean_nll(x: torch.Tensor, unembed: torch.Tensor, labels: torch.Tensor, loss_chunk: int):
+    """The mean NLL of ``labels`` under ``x @ unembed``, by sequence chunks
+    of ``loss_chunk`` (see :func:`loss_fn`)."""
+    s = labels.shape[1]
     if loss_chunk and s > loss_chunk and s % loss_chunk == 0:
         nll = torch.stack([
             checkpoint(_nll, x[:, c0:c0 + loss_chunk], unembed, labels[:, c0:c0 + loss_chunk],
@@ -215,7 +229,7 @@ def loss_fn(params: Params, cfg: LMConfig, tokens, labels, loss_chunk: int = 0) 
             for c0 in range(0, s, loss_chunk)])
     else:
         nll = _nll(x, unembed, labels)
-    return nll.mean() + aux
+    return nll.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -265,3 +279,115 @@ def decode_step(params: Params, cfg: LMConfig, token, caches: list, index: int):
         params, cfg, token, caches=caches, cache_index=index, positions=positions
     )
     return logits[:, -1], new_caches
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules
+# ---------------------------------------------------------------------------
+
+
+def _attn_specs(cfg: LMConfig, l: Optional[str], model_size: int):
+    """l is the stacked-layer leading axis (None entry prepended)."""
+    mp = "model"
+
+    def s(*axes):
+        return P(l, *axes)
+
+    if cfg.attention == "mla":
+        return {
+            "w_q": s(None, mp, None),
+            "w_dkv": s(None, None),
+            "w_krope": s(None, None),
+            "w_uk": s(None, mp, None),
+            "w_uv": s(None, mp, None),
+            "w_o": s(mp, None, None),
+            "kv_norm": s(None),
+        }
+    kv_shardable = cfg.n_kv_heads % model_size == 0
+    # GQA with few kv heads: shard K/V projections on d_model instead
+    return {
+        "w_q": s(None, mp, None),
+        "w_k": s(None, mp, None) if kv_shardable else s(mp, None, None),
+        "w_v": s(None, mp, None) if kv_shardable else s(mp, None, None),
+        "w_o": s(mp, None, None),
+    }
+
+
+def _ffn_specs(cfg: LMConfig, l: Optional[str]):
+    gated = cfg.ffn_activation in ("swiglu", "geglu")
+    specs = {"w_up": P(l, None, "model"), "w_down": P(l, "model", None)}
+    if gated:
+        specs["w_gate"] = P(l, None, "model")
+    return specs
+
+
+def _moe_specs(cfg: LMConfig, l: Optional[str]):
+    gated = cfg.ffn_activation in ("swiglu", "geglu")
+    moe = {
+        "router": P(l, None, None),
+        "w_up": P(l, "model", None, None),
+        "w_down": P(l, "model", None, None),
+    }
+    if gated:
+        moe["w_gate"] = P(l, "model", None, None)
+    if cfg.n_shared_experts:
+        moe["shared"] = _ffn_specs(cfg, l)
+    return moe
+
+
+def param_pspecs(cfg: LMConfig, model_size: int = 16) -> Params:
+    """The reference's tensor-parallel specs over ``"model"``: attention
+    heads, the FFN hidden dim and the vocabulary; experts over ``"model"``;
+    the stacked layer axis replicated.  A tree of
+    :class:`~repro_torch.core.sharding.P` matching :func:`init_params`."""
+    l = None  # stacked leading axis: replicated
+    groups = []
+    for (n, moe) in layer_groups(cfg):
+        g = {
+            "attn_norm": P(l, None),
+            "ffn_norm": P(l, None),
+            "attn": _attn_specs(cfg, l, model_size),
+        }
+        if moe:
+            g["moe"] = _moe_specs(cfg, l)
+        else:
+            g["ffn"] = _ffn_specs(cfg, l)
+        groups.append(g)
+    specs = {"embed": P("model", None), "final_norm": P(None), "groups": groups}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(None, "model")
+    return specs
+
+
+def kv_cache_pspecs(cfg: LMConfig, dp_axes: Tuple[str, ...], shard_seq: bool = False,
+                    model_size: int = 16) -> list:
+    """Cache specs (stacked: leading layer axis), as the reference's.
+
+    * default: batch over the data axes; GQA kv heads over ``"model"`` when
+      they divide it, else the sequence over ``"model"`` (MLA: always).
+    * ``shard_seq=True``: the sequence over every mesh axis, the split-K
+      layout of ``long_500k`` (batch 1).
+    """
+    dp = dp_axes
+    seq_axes = tuple(dp) + ("model",)
+    specs = []
+    for _ in layer_groups(cfg):
+        if cfg.attention == "mla":
+            if shard_seq:
+                specs.append({"c_kv": P(None, None, seq_axes, None), "k_rope": P(None, None, seq_axes, None)})
+            else:
+                specs.append({"c_kv": P(None, dp, "model", None), "k_rope": P(None, dp, "model", None)})
+        else:
+            if shard_seq:
+                specs.append(
+                    {"k": P(None, None, seq_axes, None, None), "v": P(None, None, seq_axes, None, None)}
+                )
+            elif cfg.n_kv_heads % model_size == 0:
+                specs.append(
+                    {"k": P(None, dp, None, "model", None), "v": P(None, dp, None, "model", None)}
+                )
+            else:  # few kv heads (GQA/MQA): the sequence over model
+                specs.append(
+                    {"k": P(None, dp, "model", None, None), "v": P(None, dp, "model", None, None)}
+                )
+    return specs

@@ -119,11 +119,19 @@ def adafactor_update(grads, state: AdafactorState, params, lr, decay: float = 0.
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, owned=None, reduce=None):
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns ``(grads, norm before clipping)``."""
+    returns ``(grads, norm before clipping)``.
+
+    For gradients held in blocks over several devices (the launch tooling's
+    sharded steps): ``owned``, a tree of bools matching ``grads``, keeps a
+    leaf out of this device's sum of squares where another device counts
+    the same block, and ``reduce`` sums the squares over the devices."""
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
+    counted = leaves if owned is None else [g for g, o in zip(leaves, tree_leaves(owned)) if o]
+    sq = sum((torch.sum(g.float() ** 2) for g in counted),
+             torch.zeros((), device=leaves[0].device) if owned is not None else 0)
+    gnorm = torch.sqrt(sq if reduce is None else reduce(sq))
     scale = torch.clamp(max_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     for g in leaves:
         g.mul_(scale)

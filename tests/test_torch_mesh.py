@@ -371,8 +371,13 @@ def test_mesh_accepts_a_one_dimensional_device_mesh_only(group1):
     assert eng.backend_impl.group is resolve_group(mesh)
     with pytest.raises(ValueError, match="1-D"):
         CountingEngine(g, [get_template("u3")], device="cpu", mesh=init_device_mesh("cpu", (1, 1)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        CountingEngine(g, [get_template("u3")], device="cpu", mesh=group1, ema_mode="vectorized")
+    # the reference's vectorized probe mode is ported with the launch
+    # tooling: it builds and counts as the streamed mode does
+    colors = np.random.default_rng(3).integers(0, 3, size=(1, g.n))
+    vec = CountingEngine(g, [get_template("u3")], device="cpu", mesh=group1, ema_mode="vectorized",
+                         column_batch=8)
+    np.testing.assert_allclose(vec.raw_counts(colors).numpy(), eng.raw_counts(colors).numpy(),
+                               rtol=1e-5)
 
 
 def _services(group1, ref_mesh1, **kw):

@@ -237,3 +237,131 @@ def compressed_psum_case(rank, world, x, residual):
 
     mean, new_res = compressed_psum(torch.as_tensor(x[rank]), torch.as_tensor(residual[rank]))
     return mean.numpy(), new_res.numpy()
+
+
+# ---------------------------------------------------------------------------
+# launch tooling (tests/test_torch_launch.py, tests/test_torch_sharding.py)
+# ---------------------------------------------------------------------------
+
+
+def lm_train_case(rank, world, mesh_shape, cfg, params_np, tokens, steps):
+    """``steps`` sharded train steps of granite-8b's cell step on a ``(data,
+    model)`` mesh from whole numpy parameters: every step's loss and
+    collective log, and the parameters gathered whole after the last."""
+    from repro_torch.core.sharding import P
+    from repro_torch.launch.cells import _fsdp_param_pspecs
+    from repro_torch.launch.mesh import AbstractMesh, dp_axes, realize_mesh
+    from repro_torch.launch.sharded import Comm, make_lm_train_step
+    from repro_torch.train.elastic import gather_tree, reshard_tree
+    from repro_torch.train.optimizer import adamw_init
+
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    dm = realize_mesh(mesh, "cpu")
+    comm = Comm(mesh, rank, dm)
+    specs = _fsdp_param_pspecs(cfg, dp_axes(mesh), mesh)
+    params = reshard_tree(params_np, dm, specs)
+    opt = adamw_init(params)
+    local_tokens = reshard_tree(tokens, dm, P(dp_axes(mesh), None))
+    step = make_lm_train_step(cfg, mesh, specs, n_micro=1)
+    losses, logs = [], []
+    for _ in range(steps):
+        comm.log.clear()
+        params, opt, metrics = step(comm, params, opt, local_tokens, local_tokens)
+        losses.append(float(metrics["loss"]))
+        logs.append(list(comm.log))
+    whole = gather_tree(params, dm, specs, params_np)
+    return {"rank": rank, "losses": losses, "logs": logs,
+            "params": whole if rank == 0 else None}
+
+
+def elastic_case(rank, world, tree, specs):
+    """``reshard_tree`` of a numpy tree on a ``(2, 2)`` mesh, gathered back
+    whole; then, after ``plan_elastic_mesh(2)``, placed on the mesh of the
+    two surviving ranks (ranks 0 and 1)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import AbstractMesh, realize_mesh
+    from repro_torch.train.elastic import gather_tree, plan_elastic_mesh, reshard_tree
+
+    dm = realize_mesh(AbstractMesh((2, 2), ("data", "model")), "cpu")
+    local = reshard_tree(tree, dm, specs)
+    whole = gather_tree(local, dm, specs, tree)
+    shape = plan_elastic_mesh(2)
+    small = DeviceMesh("cpu", torch.arange(2).reshape(shape), mesh_dim_names=("data", "model"))
+    again = reshard_tree(tree, small, specs)
+    to_np = (lambda t: None if t is None else _np_tree(t))
+    return {"rank": rank, "local": _np_tree(local), "whole": whole, "shape": shape,
+            "again": to_np(again)}
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np_tree(v) for v in tree]
+    return tree.numpy()
+
+
+def serve_case(rank, world, mesh_shape, case):
+    """The sharded prefill (unless ``case["shard_seq"]``) and decode steps of
+    an LM cell on a ``(data, model)`` mesh: this rank's last-position
+    logits and the caches gathered whole after prefill; this rank's decode
+    logits from the whole numpy caches ``case["caches"]`` placed at the
+    cache specs."""
+    from repro_torch.core.sharding import P
+    from repro_torch.launch.cells import _fsdp_param_pspecs
+    from repro_torch.launch.mesh import AbstractMesh, dp_axes, realize_mesh
+    from repro_torch.launch.sharded import Comm, make_lm_decode_step, make_lm_prefill_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train.elastic import gather_tree, reshard_tree
+
+    cfg = case["cfg"]
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    dm = realize_mesh(mesh, "cpu")
+    comm = Comm(mesh, rank, dm)
+    dp = dp_axes(mesh)
+    specs = _fsdp_param_pspecs(cfg, dp, mesh)
+    params = reshard_tree(case["params"], dm, specs)
+    cache_specs = T.kv_cache_pspecs(cfg, dp, shard_seq=case["shard_seq"],
+                                    model_size=mesh.shape["model"])
+    out = {"rank": rank}
+    if not case["shard_seq"]:
+        tokens = reshard_tree(case["tokens"], dm, P(dp, None))
+        zeros = [{k: np.zeros_like(v) for k, v in g.items()} for g in case["caches"]]
+        caches = reshard_tree(zeros, dm, cache_specs)
+        last, caches = make_lm_prefill_step(cfg, mesh, specs, cache_specs)(comm, params, caches, tokens)
+        out["prefill_last"] = last.numpy()
+        out["prefill_caches"] = gather_tree(caches, dm, cache_specs, case["caches"])
+    caches = reshard_tree(case["caches"], dm, cache_specs)
+    tok_spec = P(None, None) if case["shard_seq"] else P(dp, None)
+    token = reshard_tree(case["token"], dm, tok_spec)
+    logits, _ = make_lm_decode_step(cfg, mesh, specs, cache_specs)(comm, params, caches, token,
+                                                                   case["index"])
+    out["decode_logits"] = logits.numpy()
+    return out
+
+
+def sharding_cases(rank, world, mesh_shape, cfg, params_np, tokens, steps, tree=None, specs=None,
+                   serve=()):
+    """:func:`lm_train_case`, :func:`elastic_case` when a tree is given, and
+    :func:`serve_case` for each of ``serve`` (one spawned group for all)."""
+    out = lm_train_case(rank, world, mesh_shape, cfg, params_np, tokens, steps)
+    if tree is not None:
+        out["elastic"] = elastic_case(rank, world, tree, specs)
+    out["serve"] = [serve_case(rank, world, mesh_shape, case) for case in serve]
+    return out
+
+
+def vectorized_case(rank, world, graph_args, template):
+    """u5's one-coloring count through ``make_distributed_count_fn`` with the
+    ``vectorized`` eMA (no column batch) and with ``loop``."""
+    graph = rmat_graph(*graph_args)
+    plan = build_counting_plan(get_template(template))
+    sg = shard_graph(graph, world)
+    colors = np.random.default_rng(3).integers(0, plan.k, sg.n_padded).astype(np.int32)
+    out = {}
+    for mode, cb in (("vectorized", None), ("loop", 128)):
+        fn = make_distributed_count_fn(plan, dist.group.WORLD, sg.n_padded, sg.edges_per_shard,
+                                       column_batch=cb, ema_mode=mode, device="cpu")
+        out[mode] = float(fn(colors, sg.src, sg.dst_local, sg.edge_mask))
+    return out

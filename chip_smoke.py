@@ -238,14 +238,21 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
    sizes whose one-coloring DP state fits the 48 GiB budget.  Each stage
-   whose row does not fit shared memory is launched twice at one coloring
-   (bitwise equal), held against a plain version (the SpMM half with
-   ``index_add_``, the eMA by blocks of outputs), and timed beside its bound
-   and ``torch.sparse.mm`` on its SpMM half.  Then one ``count_keys_chunk``
-   through the ``blocked`` engine, whose picker must choose a chunk of 1,
-   launches kernel A once per stage, and ``compiled_memory_analysis`` must
-   stay within the budget.  Totals past the fp32 range at this size are
-   reported as the caveat the port shares with the reference; the totals
+   whose row does not fit the shared-memory path is launched twice at one
+   coloring (bitwise equal), held against a plain version (the SpMM half
+   with ``index_add_``, the eMA by blocks of outputs), and timed beside its
+   bound and ``torch.sparse.mm`` on its SpMM half; its row names its route
+   (streamed), its no-reuse gather floor (``e * C_p * 4`` bytes at 3.35
+   TB/s) and the launch's scratch bytes.  The time is a third launch's,
+   whose output reuses the repeat's freed block; the repeat's own time,
+   with its output newly allocated, and the allocator's retries in it are
+   recorded beside it.  Then one
+   ``count_keys_chunk`` through the ``blocked`` engine, whose picker must
+   choose a chunk of 1, launches kernel A once per stage, its time split
+   into the wide stages' launches (CUDA events) and the rest, and
+   ``compiled_memory_analysis`` must stay within the budget.  Totals past
+   the fp32 range at this size are reported as the caveat the port shares
+   with the reference; the totals
    are held against the plain ``edges`` engine within ``TOTALS_RTOL`` at
    :data:`WIDE_GATE_N`, the largest power of two where both stay finite
    (the ``blocked`` totals at twice that n are recorded beside them).
@@ -287,6 +294,7 @@ published peak for their type: 67 TFLOP/s fp32 for the counting kernels,
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -389,6 +397,11 @@ WIDE_GATE_N = {"u18": 1 << 12, "u20": 1 << 11}
 WIDE_GATE_GATHER_BYTES = 16 * 2**30
 #: Outputs per block of the wide stages' plain check (bounds its scratch).
 WIDE_PLAIN_BLOCK = 2048
+#: A wide stage row's host-side figures (the no-reuse gather floor, the
+#: launch's scratch, the plan's shape) and the first repeat's time with
+#: its allocator retries: logged and in ``--out``, not in the kernels
+#: line, which holds the kernel's own time.
+WIDE_HOST_KEYS = ("gather_floor_ms", "scratch_bytes", "plan", "repeat_ms", "repeat_alloc_retries")
 
 #: LM path: (b, s) of the flash checks, of the forward, and the serving run.
 FLASH_SHAPES = ((4, 4096), (1, 32768), (2, 4000))
@@ -3474,7 +3487,8 @@ def wide_stages(template_name) -> list:
 
 def check_wide_stage(operand, k, m, m_a, device) -> dict:
     """One wide stage at one coloring (the chunk the engine picks): two
-    launches bitwise equal, the kernel against a plain version (the SpMM
+    launches bitwise equal, a third timed with its output's memory already
+    cached, the kernel against a plain version (the SpMM
     half with ``index_add_`` in column chunks, then the eMA by blocks of
     outputs, each in split order; the whole plain two-pass does not fit the
     card next to the kernel's output), the launch time, its bound, and
@@ -3483,7 +3497,7 @@ def check_wide_stage(operand, k, m, m_a, device) -> dict:
 
     from repro_torch.core.colorsets import binom, build_split_table
     from repro_torch.kernels.spmm_blocked.ref import spmm_ref
-    from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, spmm_ema
+    from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, scratch_bytes, spmm_ema
 
     n, e = operand.n, operand.num_directed
     table = build_split_table(k, m, m_a)
@@ -3496,21 +3510,38 @@ def check_wide_stage(operand, k, m, m_a, device) -> dict:
     m_aa = torch.rand((n, 1, c_a), generator=gen, device=device)
     got = spmm_ema(operand, m_p, m_aa, tables)
     row = {"stage": [k, m, m_a], "n": n, "c_p": c_p, "c_a": c_a, "n_out": table.n_out,
-           "splits": table.n_splits, "tile_p": tables.tile_p,
+           "splits": table.n_splits, "route": tables.route,
            "shape": f"k={k} m={m} m_a={m_a} B=1 C_p={c_p} C_a={c_a} n_out={table.n_out} "
-                    f"splits={table.n_splits} n={n} (wide)"}
-    if device.type == "cuda":
+                    f"splits={table.n_splits} n={n} (wide, {tables.route})",
+           # host-side figures, kept out of the kernels line (WIDE_HOST_KEYS)
+           "gather_floor_ms": e * c_p * 4 / PEAK_BYTES_PER_S * 1e3,
+           "scratch_bytes": scratch_bytes(operand, 1, c_p, tables)}
+    if tables.plan is not None:
+        row["plan"] = {"groups": tables.plan.n_groups, "pieces": tables.plan.n_pieces,
+                       "max_group": tables.plan.max_group, "smem_bytes": tables.plan.smem_bytes,
+                       "staged_columns_per_row": tables.plan.staged_columns}
+
+    def timed_launch():
+        if device.type != "cuda":
+            return spmm_ema(operand, m_p, m_aa, tables), None, None
+        retries = torch.cuda.memory_stats(device).get("num_alloc_retries", 0)
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-    again = spmm_ema(operand, m_p, m_aa, tables)
-    if device.type == "cuda":
+        out = spmm_ema(operand, m_p, m_aa, tables)
         stop.record()
         torch.cuda.synchronize()
-        row["ms"] = start.elapsed_time(stop)
+        return (out, start.elapsed_time(stop),
+                torch.cuda.memory_stats(device).get("num_alloc_retries", 0) - retries)
+
+    again, row["repeat_ms"], row["repeat_alloc_retries"] = timed_launch()
     row["bitwise_repeatable"] = rows_equal(got, again)
     del again
     if not row["bitwise_repeatable"]:
         raise AssertionError(f"spmm_ema wide {(k, m, m_a)}: two launches differ")
+    third, ms, _ = timed_launch()  # its output takes the repeat's cached block
+    del third
+    if ms is not None:
+        row["ms"] = ms
 
     t0 = time.perf_counter()
     agg = spmm_ref(operand.src, operand.dst, n, m_p.reshape(n, c_p), col_chunk=256)
@@ -3561,6 +3592,33 @@ def gate_column_batch(graph, template) -> int:
     while cb * 2 * per_column <= WIDE_GATE_GATHER_BYTES:
         cb *= 2
     return cb
+
+
+@contextlib.contextmanager
+def timed_wide_launches(engine, device):
+    """While open, every stage the ``blocked`` engine sends to kernel A's
+    wide path is bracketed by CUDA events; yields the list of (start,
+    stop) pairs, to be read after the work synchronises."""
+    import torch
+
+    impl, events = engine.backend_impl, []
+    real = impl.aggregate_ema
+
+    def timed(m_p, m_a, tables):
+        if device.type != "cuda" or not impl._fused_tables[(tables.k, tables.m, tables.m_a)].wide:
+            return real(m_p, m_a, tables)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(m_p, m_a, tables)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    impl.aggregate_ema = timed
+    try:
+        yield events
+    finally:
+        del impl.aggregate_ema
 
 
 def wide_gate(template, n, keys, device) -> dict:
@@ -3627,8 +3685,10 @@ def wide_cell(template_name, n, device, budget) -> dict:
     keys = split(prng_key(0, device), 1)
     reset_counting_launches()
     t0 = time.perf_counter()
-    est = engine.count_keys_chunk(keys)  # returns on the host: synchronised
+    with timed_wide_launches(engine, device) as wide_events:
+        est = engine.count_keys_chunk(keys)  # returns on the host: synchronised
     run_s = time.perf_counter() - t0
+    wide_ms = sum(start.elapsed_time(stop) for start, stop in wide_events)
     launches = counting_launches()
     device_launches = spmm_ema.device_launches
     if launches["spmm_ema"] != stages:
@@ -3643,7 +3703,9 @@ def wide_cell(template_name, n, device, budget) -> dict:
     rec = {"template": template_name, "n": graph.n, "directed_edges": graph.num_directed,
            "max_degree": int(graph.max_degree()), "peak_columns": engine.peak_columns(),
            "chunk_size": engine.chunk_size, "engine_build_s": build_s,
-           "seconds_per_coloring": run_s, "stages": stages, "launches": launches,
+           "seconds_per_coloring": run_s, "wide_stage_launches": len(wide_events),
+           "wide_stage_ms": wide_ms, "rest_ms": run_s * 1e3 - wide_ms,
+           "stages": stages, "launches": launches,
            "device_launches": device_launches, "estimate": est[:, 0].tolist(),
            "totals_finite": finite, "memory": memory,
            "bytes_per_coloring": engine.bytes_per_coloring(), "wide_stages": rows}
@@ -4047,7 +4109,8 @@ def run(args, device, sweep) -> int:
         dict(kernel_record(
             "spmm_ema", "counting", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
             "src/repro/kernels/spmm_ema/kernel.py:48", main["launches"]["spmm_ema"],
-            ema_rows + wide["rows"], timed=ema_rows,
+            ema_rows + [{k: v for k, v in r.items() if k not in WIDE_HOST_KEYS}
+                        for r in wide["rows"]], timed=ema_rows,
         ), library_spmm_half_ms=sum(r["library_spmm_half_ms"] for r in ema_rows),
             device_launches=main["device_launches"]["spmm_ema"],
             launches_by_path={"tree": main["launches"]["spmm_ema"],

@@ -53,19 +53,38 @@
 //   split entry is one int32, active column | passive column << 16.
 // * Narrow passives (C_p <= 16 vector lanes, the leaf's 12 columns): a warp
 //   takes 32 / L edges per load step and folds the lanes with shuffles.
-// * Wide stages (launch 3 instead, spmm_ema_wide_kernel): where one row's
-//   C_p + C_a floats exceed the shared-memory budget (two stages of the
-//   repo's u18, four of u20, whose passives reach 184,756 columns), a CTA holds `tile_p` passive columns of
-//   its pass's rows at a time and reads M_a from device memory.  It zeroes
-//   its rows' outputs, then per passive tile fills the aggregate tile as
-//   above and applies only that tile's non-empty (output, entries) buckets,
-//   each in split order, adding into its own outputs in device memory.  The
-//   split entries are two int32 arrays there (no 16-bit packing), so any
-//   width works; the sum runs tile by tile, each tile in split order.
+// * Wide stages: where one row's C_p + C_a floats exceed the 112 KiB budget
+//   of the path above (two stages of the repo's u18, four of u20, passives
+//   up to 184,756 columns).  The old wide kernel walked 1024-column passive
+//   tiles and added each tile's buckets into the outputs in device memory
+//   (up to 14.5 round trips per output, 0.7 TB at u20's (20, 10, 3)), read
+//   M_a from device memory once per FMA (0.07-2.9 TB of 4-byte loads) and
+//   sized itself to 112 KiB; it ran at 19-284x its bound.  Now, per block
+//   of state rows (the 1 GiB scratch's size, cut to whole waves of the
+//   card's SMs), wide_aggregate_kernel writes the rows' aggregate
+//   (A_G @ M_p) and active state M_a into a device scratch, vertex axis
+//   fastest within 4-row sub-blocks (a float4 per column), each passive
+//   column of each edge gathered once; then wide_ema_kernel, one block of
+//   32 warps per SM on up to 227 KB of shared memory, runs over (output
+//   group, sub-block): per piece of the group (a run of splits whose active
+//   and passive supports fit shared memory; ops.py plans them) it stages
+//   both supports from the scratch as float4 rows and applies the piece's
+//   entries (local 16-bit support positions, unsigned) to register
+//   accumulators, four FMAs per entry, summing an output's entries in split
+//   order (g lanes per output where the outputs are few: entries j, j + g,
+//   ... then a fixed butterfly).  Each output is written once, after its
+//   group's last piece; M_a is read from the scratch in staged float4
+//   rows, never per FMA.  Bound: the gathers (e * C_p * 4 bytes; (20, 11,
+//   1)) or the eMA at two shared float4 reads per four FMAs.  Summing the
+//   passive supports straight from the edges instead of the scratch ran
+//   3.8-14x slower; holding a row of both states whole in shared memory
+//   where it fits 232,448 bytes (u18's stages, u20's (20, 7, 1)) ran
+//   1.1-2.0x slower, its table read once per FMA (PERF.md).
 // No float atomics and no order that depends on timing: two launches on the
 // same inputs give the same bits.  No warp walks more than a segment (heavy)
 // or a range's edges (light) per passive tile.  The entry point reports in
-// *launched how many kernels it issued (1, or 3 with heavy rows).
+// *launched how many kernels it issued (1, or 2 per block of rows on a
+// wide stage; 2 more with heavy rows).
 
 #include "../../csrc/edge_walk.cuh"
 
@@ -188,91 +207,177 @@ spmm_ema_kernel(const int* __restrict__ range_ptr, const int* __restrict__ row_p
   }
 }
 
-// A wide stage: passive tiles of tile_p columns (a multiple of the walk's
-// width, or all of C_p); tile pt's buckets are tile_ptr[pt] .. tile_ptr[pt+1],
-// bucket j adds entries bucket_ptr[j] .. bucket_ptr[j + 1] of
-// (bucket_a, bucket_p) to output bucket_out[j].
+constexpr int kWideThreads = 1024;  // threads of a wide eMA block, one block per SM
+constexpr int kWideRows = 4;        // rows of a wide eMA block: a float4 per column
+constexpr int kWideSlots = 4;       // (output, lane) items per thread of the wide eMA
+
+// The streamed route's fill of a block of state rows [s0, s0 + 4 *
+// sub_blocks) (state row s = vertex s / B, coloring s % B) into the
+// scratch, a float4 of a sub-block's four rows per column, rows past
+// n_state zeros: warp items (sub-block, passive column tile) first, each
+// walking the sub-block's four rows (or copying a heavy row's aggregate)
+// into scratch[(sb * cp + c) * 4 + q]; then items (sub-block, 128-column
+// tile of M_a), each copying the four rows' active state into
+// scratch[(sub_blocks * cp + sb * ca + c) * 4 + q].
 template <int V, int K, int L>
 __global__ void __launch_bounds__(kThreads)
-spmm_ema_wide_kernel(const int* __restrict__ range_ptr, const int* __restrict__ row_ptr,
-                     const int* __restrict__ heavy_slot, const int* __restrict__ src,
-                     const float* __restrict__ mp, int cp, const float* __restrict__ ma,
-                     int ca, int bsz, const float* __restrict__ heavy_agg,
-                     const int* __restrict__ tile_ptr, const int* __restrict__ bucket_out,
-                     const int* __restrict__ bucket_ptr, const int* __restrict__ bucket_a,
-                     const int* __restrict__ bucket_p, int n_out, int tile_p, int rows_pass,
-                     float* __restrict__ out) {
+wide_aggregate_kernel(int s0, int n_state, int sub_blocks, const int* __restrict__ row_ptr,
+                      const int* __restrict__ heavy_slot, const int* __restrict__ src,
+                      const float* __restrict__ mp, int cp, const float* __restrict__ ma,
+                      int ca, int bsz, const float* __restrict__ heavy_agg,
+                      float* __restrict__ scratch) {
   using W = Walk<V, K, L>;
-  extern __shared__ float agg[];  // rows_pass x tile_p
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int b = blockIdx.y;
-  const int r0 = range_ptr[blockIdx.x];
-  const int r1 = range_ptr[blockIdx.x + 1];
-  const int walk_tiles = (tile_p + W::kWidth - 1) / W::kWidth;
-  const int64_t stride = static_cast<int64_t>(bsz) * cp;
-  const float* base = mp + static_cast<int64_t>(b) * cp;
-
-  for (int p0 = r0; p0 < r1; p0 += rows_pass) {
-    const int np = min(rows_pass, r1 - p0);
-    for (int i = tid; i < np * n_out; i += kThreads) {
-      const int rr = i / n_out;
-      out[(static_cast<int64_t>(p0 + rr) * bsz + b) * n_out + (i - rr * n_out)] = 0.f;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = (cp + W::kWidth - 1) / W::kWidth;
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (item >= sub_blocks * n_tiles) {  // whole warps
+    const int a_tiles = (ca + 127) / 128;
+    const int a_item = item - sub_blocks * n_tiles;
+    if (a_item >= sub_blocks * a_tiles) return;
+    const int sb = a_item / a_tiles;
+    const int c0 = (a_item - sb * a_tiles) * 128;
+    float4* dst = reinterpret_cast<float4*>(scratch) + static_cast<int64_t>(sub_blocks) * cp +
+                  static_cast<int64_t>(sb) * ca;
+    for (int c = c0 + lane; c < min(ca, c0 + 128); c += 32) {
+      float x[kWideRows];
+#pragma unroll
+      for (int q = 0; q < kWideRows; ++q) {
+        const int s = s0 + sb * kWideRows + q;
+        x[q] = s < n_state ? __ldg(ma + static_cast<int64_t>(s) * ca + c) : 0.f;
+      }
+      dst[c] = make_float4(x[0], x[1], x[2], x[3]);
     }
+    return;
+  }
+  const int sb = item / n_tiles;
+  W w(lane, (item - sb * n_tiles) * W::kWidth, cp);
+  const int64_t stride = static_cast<int64_t>(bsz) * cp;
+  float r[kWideRows][W::kAcc];
+#pragma unroll
+  for (int q = 0; q < kWideRows; ++q) {
+    const int s = s0 + sb * kWideRows + q;
+    const int v = s / bsz;
+    const int b = s - v * bsz;
+    const int slot = s < n_state ? heavy_slot[v] : -1;
+    if (s >= n_state) {
+#pragma unroll
+      for (int i = 0; i < W::kAcc; ++i) r[q][i] = 0.f;
+    } else if (slot >= 0) {
+      const float* h = heavy_agg + (static_cast<int64_t>(slot) * bsz + b) * cp;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int x = 0; x < V; ++x) r[q][k * V + x] = w.ok[k] ? h[w.col[k] + x] : 0.f;
+    } else {
+      w.run(src, row_ptr[v], row_ptr[v + 1], mp + static_cast<int64_t>(b) * cp, stride, lane);
+#pragma unroll
+      for (int i = 0; i < W::kAcc; ++i) r[q][i] = w.acc[i];
+    }
+  }
+  if (lane >= L) return;
+  float4* dst = reinterpret_cast<float4*>(scratch) + static_cast<int64_t>(sb) * cp;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (w.ok[k]) {
+#pragma unroll
+      for (int x = 0; x < V; ++x)
+        dst[w.col[k] + x] = make_float4(r[0][k * V + x], r[1][k * V + x], r[2][k * V + x],
+                                        r[3][k * V + x]);
+    }
+}
 
-    for (int pt = 0, c0 = 0; c0 < cp; ++pt, c0 += tile_p) {
-      const int hi = min(cp, c0 + tile_p);
-      // SpMM half: the pass's aggregate over columns [c0, hi)
-      for (int item = warp; item < np * walk_tiles; item += kWarps) {
-        const int rr = item / walk_tiles;
-        const int lo = c0 + (item - rr * walk_tiles) * W::kWidth;
-        if (lo >= hi) continue;
-        const int v = p0 + rr;
-        const int slot = heavy_slot[v];
-        float* arow = agg + rr * tile_p;
-        if (slot >= 0) {
-          const float* h = heavy_agg + (static_cast<int64_t>(slot) * bsz + b) * cp;
-          const int end = min(hi, lo + W::kWidth);
-          for (int cc = lo + lane; cc < end; cc += 32) arow[cc - c0] = h[cc];
-        } else {
-          W w(lane, lo, hi);
-          w.run(src, row_ptr[v], row_ptr[v + 1], base, stride, lane);
-          w.store_shared(arow, lane, c0);
-        }
-      }
-      __syncthreads();  // also orders the zeroing or the last tile's adds
+// The streamed route's eMA: block (group, sub-block) over state rows
+// row0 = s0 + 4 * sub-block on, from a 1-D grid in tiles of sub_tile
+// sub-blocks by all groups, sub-blocks fastest: at sub_tile 1 a wave takes
+// many groups of one sub-block (its scratch read once; the table, if it
+// fits L2, stays there), at 16 a few groups of 16 sub-blocks (a table past
+// L2 read once per tile instead of once per sub-block).  Per piece it
+// stages the active and passive supports from the scratch as float4 rows,
+// then each (output, lane) item applies its entries; each output is
+// written once.
+__global__ void __launch_bounds__(kWideThreads, 1)
+wide_ema_kernel(int s0, int n_state, int sub_blocks, int sub_tile,
+                const float* __restrict__ scratch, int ca, int cp,
+                const int* __restrict__ group_out, const int* __restrict__ group_piece,
+                const int* __restrict__ piece_ent, const int* __restrict__ piece_sa,
+                const int* __restrict__ piece_sp, const int* __restrict__ sup_a,
+                const int* __restrict__ sup_p, const unsigned* __restrict__ ent, int n_out,
+                float* __restrict__ out) {
+  extern __shared__ float4 sup[];
+  const int tid = threadIdx.x;
+  const int n_groups = gridDim.x / sub_blocks;
+  const int tile = blockIdx.x / (n_groups * sub_tile);
+  const int span = min(sub_tile, sub_blocks - tile * sub_tile);
+  const int rest = blockIdx.x - tile * n_groups * sub_tile;
+  const int grp = rest / span;
+  const int sb = tile * sub_tile + (rest - grp * span);
+  const int row0 = s0 + sb * kWideRows;
+  const int o0 = group_out[grp];
+  const int G = group_out[grp + 1] - o0;
+  int g = 1;
+  while (g < 32 && G * g * 2 <= kWideThreads) g <<= 1;
+  const int items = G * g;
+  const int j = tid & (g - 1);
+  // this sub-block's aggregate and active state in the scratch
+  const float4* bp = reinterpret_cast<const float4*>(scratch) + static_cast<int64_t>(sb) * cp;
+  const float4* ba = reinterpret_cast<const float4*>(scratch) +
+                     static_cast<int64_t>(sub_blocks) * cp + static_cast<int64_t>(sb) * ca;
+  float4 acc[kWideSlots];
+#pragma unroll
+  for (int i = 0; i < kWideSlots; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-      // eMA half: this tile's buckets; four rows of one bucket per thread,
-      // buckets fastest, so one entry load serves four FMAs
-      const int j0 = tile_ptr[pt];
-      const int nb = tile_ptr[pt + 1] - j0;
-      for (int item = tid; item < (np + 3) / 4 * nb; item += kThreads) {
-        const int rg = item / nb;
-        const int j = j0 + item - rg * nb;
-        const int q0 = rg * 4;
-        const int nr = min(4, np - q0);
-        const int64_t row0 = static_cast<int64_t>(p0 + q0) * bsz + b;
-        const float* a = ma + row0 * ca;
-        const float* p = agg + q0 * tile_p;
-        float* o = out + row0 * n_out + bucket_out[j];
-        const int64_t a_row = static_cast<int64_t>(bsz) * ca;  // next row of M_a
-        const int64_t o_row = static_cast<int64_t>(bsz) * n_out;
-        float acc[4];
+  for (int pc = group_piece[grp]; pc < group_piece[grp + 1]; ++pc) {
+    const int a0 = piece_sa[pc], na = piece_sa[pc + 1] - a0;
+    const int p0 = piece_sp[pc], np = piece_sp[pc + 1] - p0;
+    float4* sa = sup;
+    float4* sp = sup + na;
+    for (int i = tid; i < na; i += kWideThreads) sa[i] = __ldg(ba + sup_a[a0 + i]);
+    for (int i = tid; i < np; i += kWideThreads) sp[i] = __ldg(bp + sup_p[p0 + i]);
+    __syncthreads();
+
+    const int cnt = (piece_ent[pc + 1] - piece_ent[pc]) / G;
+    const unsigned* e0 = ent + piece_ent[pc];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = q < nr ? o[q * o_row] : 0.f;
-        for (int e = bucket_ptr[j]; e < bucket_ptr[j + 1]; ++e) {
-          const int ia = __ldg(bucket_a + e), ip = __ldg(bucket_p + e) - c0;
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (q < nr) acc[q] += __ldg(a + q * a_row + ia) * p[q * tile_p + ip];
+    for (int s = 0; s < kWideSlots; ++s) {
+      const int item = tid + s * kWideThreads;
+      if (item < items) {
+        const unsigned* e = e0 + item / g;  // entry t of the output at e[t * G]
+        float4 r = acc[s];
+        int t = j;
+        for (; t + g < cnt; t += 2 * g) {  // two loads ahead (32 warps hide the rest)
+          const unsigned x0 = __ldg(e + t * G), x1 = __ldg(e + (t + g) * G);
+          const float4 a0 = sa[x0 & 0xffffu], u0 = sp[x0 >> 16];
+          const float4 a1 = sa[x1 & 0xffffu], u1 = sp[x1 >> 16];
+          r.x += a0.x * u0.x; r.y += a0.y * u0.y; r.z += a0.z * u0.z; r.w += a0.w * u0.w;
+          r.x += a1.x * u1.x; r.y += a1.y * u1.y; r.z += a1.z * u1.z; r.w += a1.w * u1.w;
         }
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (q < nr) o[q * o_row] = acc[q];
+        for (; t < cnt; t += g) {
+          const unsigned x = __ldg(e + t * G);
+          const float4 a = sa[x & 0xffffu], u = sp[x >> 16];
+          r.x += a.x * u.x; r.y += a.y * u.y; r.z += a.z * u.z; r.w += a.w * u.w;
+        }
+        acc[s] = r;
       }
-      __syncthreads();
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int s = 0; s < kWideSlots; ++s) {
+    float4 r = acc[s];
+    for (int off = g >> 1; off > 0; off >>= 1) {  // every lane: whole warps shuffle
+      r.x += __shfl_xor_sync(0xffffffffu, r.x, off);
+      r.y += __shfl_xor_sync(0xffffffffu, r.y, off);
+      r.z += __shfl_xor_sync(0xffffffffu, r.z, off);
+      r.w += __shfl_xor_sync(0xffffffffu, r.w, off);
+    }
+    const int item = tid + s * kWideThreads;
+    if (item < items && j == 0) {
+      const int o = o0 + item / g;
+      const float v[kWideRows] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int q = 0; q < kWideRows; ++q)
+        if (row0 + q < n_state) out[static_cast<int64_t>(row0 + q) * n_out + o] = v[q];
     }
   }
 }
@@ -333,8 +438,10 @@ struct LightLaunch {
   }
 };
 
-struct WideLaunch {
-  const int* range_ptr;
+// The streamed route: per block of block_rows state rows, the rows'
+// aggregate and active state into the scratch, then the eMA over (group,
+// sub-block).
+struct StreamLaunch {
   const int* row_ptr;
   const int* heavy_slot;
   const int* src;
@@ -343,51 +450,67 @@ struct WideLaunch {
   const float* ma;
   int ca;
   int bsz;
+  int n_state;
   const float* heavy_agg;
-  const int* tile_ptr;
-  const int* bucket_out;
-  const int* bucket_ptr;
-  const int* bucket_a;
-  const int* bucket_p;
+  int n_groups;
+  const int* group_out;
+  const int* group_piece;
+  const int* piece_ent;
+  const int* piece_sa;
+  const int* piece_sp;
+  const int* sup_a;
+  const int* sup_p;
+  const unsigned* ent;
   int n_out;
-  int tile_p;
-  int rows_pass;
-  int n_ranges;
+  int smem;
+  int block_rows;
+  int sub_tile;
+  float* scratch;
   float* out;
   cudaStream_t stream;
+  int* launched;
 
   template <int V, int K, int L>
   cudaError_t run() const {
-    const size_t smem = static_cast<size_t>(rows_pass) * tile_p * sizeof(float);
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(spmm_ema_wide_kernel<V, K, L>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
+    cudaError_t err = cudaFuncSetAttribute(wide_ema_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const int n_tiles = (cp + Walk<V, K, L>::kWidth - 1) / Walk<V, K, L>::kWidth;
+    for (int s0 = 0; s0 < n_state; s0 += block_rows) {
+      const int sub_blocks = (min(block_rows, n_state - s0) + kWideRows - 1) / kWideRows;
+      const int items = sub_blocks * (n_tiles + (ca + 127) / 128);
+      wide_aggregate_kernel<V, K, L><<<(items + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          s0, n_state, sub_blocks, row_ptr, heavy_slot, src, mp, cp, ma, ca, bsz, heavy_agg,
+          scratch);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      ++*launched;
+      wide_ema_kernel<<<n_groups * sub_blocks, kWideThreads, smem, stream>>>(
+          s0, n_state, sub_blocks, sub_tile, scratch, ca, cp, group_out, group_piece, piece_ent,
+          piece_sa, piece_sp, sup_a, sup_p, ent, n_out, out);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      ++*launched;
     }
-    dim3 grid(n_ranges, bsz);
-    spmm_ema_wide_kernel<V, K, L><<<grid, kThreads, smem, stream>>>(
-        range_ptr, row_ptr, heavy_slot, src, mp, cp, ma, ca, bsz, heavy_agg, tile_ptr,
-        bucket_out, bucket_ptr, bucket_a, bucket_p, n_out, tile_p, rows_pass, out);
-    return cudaGetLastError();
+    return cudaSuccess;
   }
 };
 
 }  // namespace
 
-// `ent` (packed, split-major) drives the shared-memory kernel; where it is
-// null the stage is wide and (tile_ptr, bucket_out, bucket_ptr, bucket_a,
-// bucket_p) with `tile_p` drive spmm_ema_wide_kernel.
+// route 0: the shared-memory kernel (ent packed, split-major); 1: the wide
+// stage's fill and eMA over the plan (ent its local entries; rows_pass the
+// state rows per block, sub_tile the eMA grid's tile height, scratch a
+// block's aggregate and active state).
 extern "C" int spmm_ema_launch(const int* row_ptr, const int* src, int n, const float* mp,
                                int cp, const float* ma, int ca, int bsz, const int* ent,
                                int n_splits, int n_out, int rows_pass, int n_ranges,
                                const int* range_ptr, const int* heavy_slot, int n_heavy,
                                const int* seg_ptr, int n_segments, const int* seg_beg,
                                const int* seg_end, float* partials, float* heavy_agg,
-                               const int* tile_ptr, const int* bucket_out,
-                               const int* bucket_ptr, const int* bucket_a,
-                               const int* bucket_p, int tile_p, float* out, void* stream,
-                               int* launched) {
+                               int route, int n_groups, const int* group_out,
+                               const int* group_piece, const int* piece_ent,
+                               const int* piece_sa, const int* piece_sp, const int* sup_a,
+                               const int* sup_p, int smem, int sub_tile, float* scratch,
+                               float* out, void* stream, int* launched) {
   *launched = 0;
   if (n <= 0 || bsz <= 0 || n_out <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -404,17 +527,21 @@ extern "C" int spmm_ema_launch(const int* row_ptr, const int* src, int n, const 
   }
   const void* ptrs[] = {mp};
   const int vec = vector_width(cp, ptrs, 1);
-  cudaError_t err;
-  if (ent != nullptr) {
-    const LightLaunch light{range_ptr, row_ptr, heavy_slot, src, mp, cp, ma, ca, bsz,
-                            heavy_agg, ent, n_splits, n_out, rows_pass, n_ranges, out, s};
-    err = dispatch(cp, vec, light);
-  } else {
-    const WideLaunch wide{range_ptr, row_ptr, heavy_slot, src, mp, cp, ma, ca, bsz,
-                          heavy_agg, tile_ptr, bucket_out, bucket_ptr, bucket_a, bucket_p,
-                          n_out, tile_p, rows_pass, n_ranges, out, s};
-    err = dispatch(cp, vec, wide);
+  if (route != 0) {
+    const StreamLaunch streamed{row_ptr, heavy_slot, src, mp, cp, ma, ca, bsz, n * bsz,
+                                heavy_agg, n_groups, group_out, group_piece, piece_ent,
+                                piece_sa, piece_sp, sup_a, sup_p,
+                                reinterpret_cast<const unsigned*>(ent), n_out, smem,
+                                rows_pass, sub_tile, scratch, out, s, launched};
+    return static_cast<int>(dispatch(cp, vec, streamed));
   }
+  const LightLaunch light{range_ptr, row_ptr, heavy_slot, src, mp, cp, ma, ca, bsz,
+                          heavy_agg, ent, n_splits, n_out, rows_pass, n_ranges, out, s};
+  const cudaError_t err = dispatch(cp, vec, light);
   if (err == cudaSuccess) ++*launched;
   return static_cast<int>(err);
 }
+
+// The wide eMA block's shape, which ops.py plans for (checked when it loads).
+extern "C" int spmm_ema_wide_threads() { return kWideThreads; }
+extern "C" int spmm_ema_wide_rows() { return kWideRows; }

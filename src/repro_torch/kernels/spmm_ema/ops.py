@@ -1,22 +1,39 @@
 """Host side of the fused SpMM+eMA kernel: stage tables, geometry, wrapper.
 
 A stage's split table ``(idx_a, idx_p)`` is prepared once per stage for
-the kernel.  Where a row's passive aggregate and active state fit the
-shared-memory budget (every stage of the templates up to u17), the kernel holds the whole
-aggregate, and the table is packed: every output's ``(active column,
-passive column)`` entries in split order, one int32 each (``active |
-passive << 16``), stored split-major so that consecutive outputs' entries
-are contiguous -- the single bucket of ``colorsets.bucketed_split_entries``
-whose tile spans every passive column.  A wider stage (u20's reach
-184,756 columns) is walked in passive tiles of :data:`WIDE_TILE_COLS`
-columns, and its entries are bucketed by (tile, output), each bucket in
-split order, as two int32 arrays.  The graph operand is the compact CSR of
-:mod:`repro_torch.kernels.spmm_blocked.ops` with its edge-balanced
-partition.
+the kernel, by one of two routes:
 
-On CPU tensors :func:`spmm_ema` runs the plain two-pass version
+* ``shared`` (every stage of the templates up to u17): a row's passive
+  aggregate and active state fit :data:`SMEM_BUDGET_BYTES`; the kernel
+  holds whole rows, and the table is packed: every output's ``(active
+  column, passive column)`` entries in split order, one int32 each
+  (``active | passive << 16``), stored split-major so that consecutive
+  outputs' entries are contiguous -- the single bucket of
+  ``colorsets.bucketed_split_entries`` whose tile spans every passive
+  column.
+* ``streamed`` (the wide stages: u18's two, u20's four, up to 184,756
+  passive columns): a :class:`WidePlan` cuts the outputs into groups and
+  each group's split entries into pieces in split order, each piece with
+  its active and passive support (the columns its entries read) small
+  enough that :data:`WIDE_ROWS` rows of it fit :data:`WIDE_SMEM_BYTES`
+  (local positions below 2^16, read as unsigned halves).  The kernel
+  writes the aggregate and the active state of a block of rows into a
+  device scratch, vertex axis fastest, then per (group, :data:`WIDE_ROWS`
+  rows) stages each piece's supports in shared memory and accumulates the
+  group's outputs in registers, writing each once.
+
+The graph operand is the compact CSR of
+:mod:`repro_torch.kernels.spmm_blocked.ops` with its edge-balanced
+partition.  On CPU tensors :func:`spmm_ema` runs the plain two-pass version
 (:func:`repro_torch.kernels.spmm_ema.ref.spmm_ema_ref`); on CUDA tensors it
 launches ``csrc/spmm_ema.cu`` or raises.
+
+The wide path can be forced at small widths by lowering the module
+constants: :data:`SMEM_BUDGET_BYTES` below a row's ``(C_p + C_a) * 4``
+bytes sends a stage to it, :data:`WIDE_SMEM_BYTES` caps a piece's
+supports at ``WIDE_SMEM_BYTES / 16`` columns, and :data:`WIDE_GROUP_MAX` /
+:data:`WIDE_SCRATCH_BYTES` set the group size and the rows per scratch
+block.
 """
 
 from __future__ import annotations
@@ -37,15 +54,24 @@ from .ref import spmm_ema_ref
 
 __all__ = [
     "FusedStageTables",
+    "WidePlan",
     "prepare_stage_tables",
+    "stage_route",
+    "plan_wide_stage",
     "kernel_geometry",
     "row_fits",
+    "block_rows",
     "scratch_bytes",
     "check_int32_counts",
     "spmm_ema",
     "SOURCE",
     "SMEM_BUDGET_BYTES",
-    "WIDE_TILE_COLS",
+    "WIDE_SMEM_BYTES",
+    "WIDE_ROWS",
+    "WIDE_GROUP_MAX",
+    "WIDE_SCRATCH_BYTES",
+    "WIDE_THREADS",
+    "wave_blocks",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spmm_ema.cu"
@@ -56,41 +82,117 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "spmm_ema.cu"
 #: 99 KiB).
 SMEM_BUDGET_BYTES = 112 * 1024
 
-#: Passive columns a CTA holds at once on a stage whose row does not fit
-#: the budget: a multiple of the 128-column warp walk; 16 rows of it take
-#: 64 KiB.
-WIDE_TILE_COLS = 1024
+#: Shared memory one eMA block of the wide path may take: all a Hopper
+#: block can (227 KB of the SM's 256 KB), one block per SM.
+WIDE_SMEM_BYTES = 232_448
+
+#: Threads of a wide eMA block (``kWideThreads`` in the source).
+WIDE_THREADS = 1024
+
+#: Rows one streamed eMA block holds: a float4 of them per staged column,
+#: so each split entry serves four FMAs (fixed by the kernel's layout).
+WIDE_ROWS = 4
+
+#: Most outputs of one streamed group (at most four per thread of an eMA
+#: block: each thread holds four (output, 4-row) float4 accumulators).
+WIDE_GROUP_MAX = 4 * WIDE_THREADS
+
+#: Device scratch of a streamed stage: one block of rows' aggregate and
+#: active state, ``rows x (C_p + C_a)`` floats (the vertex axis fastest
+#: within each 4-row sub-block); a stage walks its rows in blocks of this
+#: size.
+WIDE_SCRATCH_BYTES = 1 << 30
+
+#: Sub-blocks of the eMA grid's tiles where a streamed stage's split
+#: entries pass half the card's L2: all groups take a tile of sub-blocks
+#: in turn, so the table is read once per tile instead of once per
+#: sub-block (a table that fits stays in L2 under tiles of one).
+WIDE_SUB_TILE = 16
+
+#: The routes, in the order of the source's ``route`` argument.
+ROUTES = ("shared", "streamed")
 
 
 def row_fits(c_p: int, c_a: int) -> bool:
     """Whether one row's passive aggregate and active state fit the budget
-    (the kernel then holds all ``C_p`` columns; else it walks tiles)."""
+    of the shared-memory path (else the stage takes the wide path)."""
     return (c_p + c_a) * 4 <= SMEM_BUDGET_BYTES
+
+
+def stage_route(c_p: int, c_a: int) -> str:
+    """``shared`` where a row fits the shared-memory path's budget, else
+    ``streamed`` (see the module docstring)."""
+    return "shared" if row_fits(c_p, c_a) else "streamed"
+
+
+def wave_blocks(device) -> int:
+    """Wide eMA blocks one wave holds on ``device``: one per SM of a card,
+    0 (no cut to waves) elsewhere."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """A streamed stage's groups and pieces, on a device.
+
+    Group ``g`` holds outputs ``group_out[g] : group_out[g + 1]`` and the
+    pieces ``group_piece[g] : group_piece[g + 1]``.  Piece ``j`` takes, of
+    every output of its group, the same run of consecutive splits, so an
+    output's entries are summed in split order, piece after piece.  Its
+    supports are the sorted active columns ``sup_a[piece_sa[j] :
+    piece_sa[j + 1]]`` and passive columns ``sup_p[piece_sp[j] :
+    piece_sp[j + 1]]`` its entries read; its entries are
+    ``ent[piece_ent[j] : piece_ent[j + 1]]``, split-major (entry ``t`` of
+    the group's outputs contiguous), each ``la | lp << 16`` with ``la`` /
+    ``lp`` positions in those supports, read as unsigned.
+    """
+
+    group_out: torch.Tensor    # (n_groups + 1,) int32
+    group_piece: torch.Tensor  # (n_groups + 1,) int32
+    piece_ent: torch.Tensor    # (n_pieces + 1,) int32
+    piece_sa: torch.Tensor     # (n_pieces + 1,) int32
+    piece_sp: torch.Tensor     # (n_pieces + 1,) int32
+    sup_a: torch.Tensor        # int32 active columns
+    sup_p: torch.Tensor        # int32 passive columns
+    max_group: int             # outputs of the largest group
+    max_support: int           # columns of the largest piece's supports
+    staged_columns: int        # columns staged per row: all pieces' supports
+
+    @property
+    def n_groups(self) -> int:
+        return int(self.group_out.numel()) - 1
+
+    @property
+    def n_pieces(self) -> int:
+        return int(self.piece_ent.numel()) - 1
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared bytes of one eMA block: the largest piece's supports, a
+        float4 of :data:`WIDE_ROWS` rows per column."""
+        return self.max_support * WIDE_ROWS * 4
 
 
 @dataclass(frozen=True)
 class FusedStageTables:
     """One stage's split table, plain and prepared for the kernel, on a device.
 
-    ``ent`` is set where a row fits shared memory (:func:`row_fits`);
-    otherwise the stage is wide, and passive tile ``pt`` (columns
-    ``pt * tile_p`` on) has the buckets ``tile_ptr[pt] : tile_ptr[pt + 1]``,
-    bucket ``j`` holding output ``bucket_out[j]``'s entries
-    ``bucket_ptr[j] : bucket_ptr[j + 1]`` of ``bucket_a`` / ``bucket_p``.
+    ``route`` is :func:`stage_route`'s.  ``ent`` is the packed split-major
+    table (``shared``), or the plan's local entries (``streamed``, with
+    ``plan`` set).
     """
 
     n_out: int
     c_p: int
     c_a: int
-    tile_p: int          # passive columns per tile (all of C_p when ent is set)
+    route: str
     idx_a: torch.Tensor  # (n_out, n_splits) int64 — the plain table
     idx_p: torch.Tensor  # (n_out, n_splits) int64
-    ent: Optional[torch.Tensor] = None         # (n_splits, n_out) int32: (idx_a | idx_p << 16).T
-    tile_ptr: Optional[torch.Tensor] = None    # (n_tiles + 1,) int32
-    bucket_out: Optional[torch.Tensor] = None  # (n_buckets,) int32
-    bucket_ptr: Optional[torch.Tensor] = None  # (n_buckets + 1,) int32
-    bucket_a: Optional[torch.Tensor] = None    # (n_out * n_splits,) int32
-    bucket_p: Optional[torch.Tensor] = None    # (n_out * n_splits,) int32
+    ent: torch.Tensor    # int32: (idx_a | idx_p << 16).T, or the plan's entries
+    plan: Optional[WidePlan] = None
 
     @property
     def n_splits(self) -> int:
@@ -98,28 +200,105 @@ class FusedStageTables:
 
     @property
     def wide(self) -> bool:
-        return self.ent is None
+        return self.route != "shared"
 
 
-def _buckets(idx_a, idx_p, c_p: int, tile: int):
-    """The wide layout: entries sorted by (passive tile, output), split
-    order kept inside each bucket; empty buckets left out."""
-    n_out, n_splits = idx_a.shape
-    if n_out * n_splits >= 2**31:
-        raise ValueError("stage tables too large for int32 offsets")
-    n_tiles = -(-c_p // tile)
-    key = ((idx_p // tile) * n_out + np.arange(n_out)[:, None]).ravel()
-    order = np.argsort(key, kind="stable")
-    keys, starts = np.unique(key[order], return_index=True)
-    bucket_ptr = np.append(starts, key.size)
-    tile_ptr = np.searchsorted(keys // n_out, np.arange(n_tiles + 1))
-    return (tile_ptr, keys % n_out, bucket_ptr,
-            idx_a.ravel()[order], idx_p.ravel()[order])
+def _distinct(cols, seen, stamp, slot):
+    """The columns of ``cols`` not yet stamped ``stamp`` in ``seen``, each
+    once (``slot``: scratch of ``seen``'s size; the last write of a
+    repeated column wins, so one position per column matches)."""
+    fresh = cols[seen[cols] != stamp]
+    slot[fresh] = np.arange(fresh.size)
+    return fresh[slot[fresh] == np.arange(fresh.size)]
+
+
+def _greedy_pieces(a, p, c_a: int, c_p: int, cap: int):
+    """Cut one group's ``(G, S)`` entries into runs of splits ``[t0, t1)``
+    whose supports (distinct active plus passive columns) stay within
+    ``cap``: each run grows a split at a time while it fits.  Returns the
+    runs and the columns they stage, or None where one split alone is past
+    the cap."""
+    seen_a, slot_a = np.full(c_a, -1, np.int64), np.empty(c_a, np.int64)
+    seen_p, slot_p = np.full(c_p, -1, np.int64), np.empty(c_p, np.int64)
+    runs, t0, size, staged = [], 0, 0, 0
+    for t in range(a.shape[1]):
+        new_a = _distinct(a[:, t], seen_a, t0, slot_a)
+        new_p = _distinct(p[:, t], seen_p, t0, slot_p)
+        if size + new_a.size + new_p.size > cap and t > t0:
+            runs.append((t0, t))
+            staged += size
+            t0, size = t, 0
+            new_a = _distinct(a[:, t], seen_a, t0, slot_a)
+            new_p = _distinct(p[:, t], seen_p, t0, slot_p)
+        if new_a.size + new_p.size > cap:
+            return None
+        seen_a[new_a], seen_p[new_p] = t0, t0  # stamped with the run's first split
+        size += new_a.size + new_p.size
+    runs.append((t0, a.shape[1]))
+    return runs, staged + size
+
+
+def plan_wide_stage(idx_a, idx_p, c_p: int, c_a: int):
+    """The streamed plan's numpy arrays: groups of at most
+    :data:`WIDE_GROUP_MAX` consecutive outputs (colex order), each cut by
+    :func:`_greedy_pieces` under the support cap of
+    :data:`WIDE_SMEM_BYTES`.  Of the group sizes ``WIDE_GROUP_MAX / 2**i``
+    (i < 4), the one that stages the fewest columns per row wins (the
+    larger on a tie).  Returns a dict of the :class:`WidePlan` fields."""
+    idx_a = np.asarray(idx_a, dtype=np.int64)
+    idx_p = np.asarray(idx_p, dtype=np.int64)
+    n_out = idx_a.shape[0]
+    cap = WIDE_SMEM_BYTES // (WIDE_ROWS * 4)
+    if cap >= 1 << 16:
+        raise ValueError(f"a support of {cap} columns passes the 16-bit local index")
+    best = None
+    for size in sorted({min(n_out, max(1, WIDE_GROUP_MAX >> i)) for i in range(4)},
+                       reverse=True):
+        groups, staged = [], 0
+        for o0 in range(0, n_out, size):
+            cut = _greedy_pieces(idx_a[o0:o0 + size], idx_p[o0:o0 + size], c_a, c_p, cap)
+            if cut is None:
+                break
+            groups.append((o0, cut[0]))
+            staged += cut[1]
+        else:
+            if best is None or staged < best[0]:
+                best = (staged, size, groups)
+    if best is None:
+        raise ValueError(f"no group of outputs fits {WIDE_SMEM_BYTES} shared bytes")
+    staged, size, groups = best
+    group_out, group_piece = [0], [0]
+    piece_ent, piece_sa, piece_sp = [0], [0], [0]
+    sup_a, sup_p, ents = [], [], []
+    max_support = 0
+    pos_a, pos_p = np.empty(c_a, np.int64), np.empty(c_p, np.int64)
+    for o0, runs in groups:
+        o1 = min(n_out, o0 + size)
+        for t0, t1 in runs:
+            a, p = idx_a[o0:o1, t0:t1], idx_p[o0:o1, t0:t1]
+            ua, up = np.unique(a), np.unique(p)
+            pos_a[ua], pos_p[up] = np.arange(ua.size), np.arange(up.size)
+            local = pos_a[a] | pos_p[p] << 16
+            ents.append(local.T.ravel())
+            sup_a.append(ua)
+            sup_p.append(up)
+            piece_ent.append(piece_ent[-1] + local.size)
+            piece_sa.append(piece_sa[-1] + ua.size)
+            piece_sp.append(piece_sp[-1] + up.size)
+            max_support = max(max_support, ua.size + up.size)
+        group_out.append(o1)
+        group_piece.append(len(piece_ent) - 1)
+    return dict(group_out=group_out, group_piece=group_piece, piece_ent=piece_ent,
+                piece_sa=piece_sa, piece_sp=piece_sp, sup_a=np.concatenate(sup_a),
+                sup_p=np.concatenate(sup_p),
+                ent=np.concatenate(ents).astype(np.uint32).view(np.int32),
+                max_group=min(size, n_out), max_support=max_support, staged_columns=staged)
 
 
 def prepare_stage_tables(idx_a, idx_p, c_p: int, c_a: int, device) -> FusedStageTables:
     """Prepare ``(n_out, n_splits)`` split tables for the kernel: packed
-    where a row fits shared memory, bucketed by passive tile where not.
+    where a row fits the shared-memory path's budget, planned in groups and
+    pieces where not (:func:`stage_route`).
 
     ``c_p`` / ``c_a`` are the passive / active state widths the tables
     index; every index is checked against them, because the kernel reads
@@ -133,47 +312,76 @@ def prepare_stage_tables(idx_a, idx_p, c_p: int, c_a: int, device) -> FusedStage
         0 <= idx_a.min() and idx_a.max() < c_a and 0 <= idx_p.min() and idx_p.max() < c_p
     ):
         raise ValueError(f"split indices outside C_a={c_a} / C_p={c_p}")
+    if idx_a.size >= 2**31:
+        raise ValueError("stage tables too large for int32 offsets")
     device = torch.device(device)
 
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32), device=device)
 
-    plain = dict(n_out=idx_a.shape[0], c_p=int(c_p), c_a=int(c_a),
+    route = stage_route(c_p, c_a)
+    plain = dict(n_out=idx_a.shape[0], c_p=int(c_p), c_a=int(c_a), route=route,
                  idx_a=torch.as_tensor(idx_a, device=device),
                  idx_p=torch.as_tensor(idx_p, device=device))
-    if row_fits(c_p, c_a):  # then C_a, C_p < 2^15: the packing holds
-        return FusedStageTables(tile_p=int(c_p), ent=i32((idx_a | idx_p << 16).T), **plain)
-    tile = min(int(c_p), WIDE_TILE_COLS)
-    if tile < c_p and tile % 128:
-        raise ValueError(f"WIDE_TILE_COLS={WIDE_TILE_COLS} is no multiple of the 128-column walk")
-    tile_ptr, bucket_out, bucket_ptr, bucket_a, bucket_p = _buckets(idx_a, idx_p, int(c_p), tile)
-    return FusedStageTables(
-        tile_p=tile, tile_ptr=i32(tile_ptr), bucket_out=i32(bucket_out),
-        bucket_ptr=i32(bucket_ptr), bucket_a=i32(bucket_a), bucket_p=i32(bucket_p), **plain)
+    if route == "shared":  # C_a, C_p < 2^15 here: the signed halves hold
+        packed = (idx_a | idx_p << 16).T.astype(np.uint32).view(np.int32)
+        return FusedStageTables(ent=i32(packed), **plain)
+    arrays = plan_wide_stage(idx_a, idx_p, c_p, c_a)
+    plan = WidePlan(**{k: i32(arrays[k]) for k in (
+        "group_out", "group_piece", "piece_ent", "piece_sa", "piece_sp", "sup_a", "sup_p")},
+        max_group=arrays["max_group"], max_support=arrays["max_support"],
+        staged_columns=arrays["staged_columns"])
+    return FusedStageTables(ent=i32(arrays["ent"]), plan=plan, **plain)
 
 
 def kernel_geometry(c_p: int, c_a: int, range_rows: int) -> int:
     """Rows per pass of a light range: the whole range when its shared
-    state fits :data:`SMEM_BUDGET_BYTES`, else as many rows as fit (each
-    pass walks its rows' edges for every passive tile).  The shared state of
-    a row is its passive aggregate and active state where :func:`row_fits`,
-    else one passive tile of ``min(C_p, WIDE_TILE_COLS)`` columns."""
-    floats = c_p + c_a if row_fits(c_p, c_a) else min(c_p, WIDE_TILE_COLS)
-    return _rows_per_pass(floats, range_rows)
+    state fits :data:`SMEM_BUDGET_BYTES`, else as many rows as fit; a
+    streamed stage's eMA block holds :data:`WIDE_ROWS` rows."""
+    if stage_route(c_p, c_a) == "streamed":
+        return WIDE_ROWS
+    return _rows_per_pass(c_p + c_a, range_rows)
 
 
 def _rows_per_pass(row_floats: int, range_rows: int) -> int:
     rows = min(range_rows, SMEM_BUDGET_BYTES // (row_floats * 4))
     if rows < 1:
-        raise ValueError(f"a row's {row_floats} shared floats exceed the shared memory budget")
+        raise ValueError(
+            f"a row's {row_floats} shared floats exceed {SMEM_BUDGET_BYTES} shared bytes")
     return rows
 
 
-def scratch_bytes(operand: CompactOperand, bsz: int, c_p: int) -> int:
+def block_rows(n_rows: int, row_floats: int, n_groups: int = 1, waves_of: int = 0) -> int:
+    """State rows (vertex x coloring) of one block of a streamed stage: as
+    many whole sub-blocks of :data:`WIDE_ROWS` as the scratch holds of
+    ``row_floats`` floats per row (at least one), at most all rows.  Where
+    the rows take several blocks, a block's ``n_groups x sub-blocks`` eMA
+    blocks are cut down to whole waves of ``waves_of`` blocks (the card's
+    SMs, :func:`wave_blocks`; 0: no cut)."""
+    total = -(-n_rows // WIDE_ROWS)
+    sub = min(max(WIDE_SCRATCH_BYTES // (WIDE_ROWS * row_floats * 4), 1), total)
+    waves = n_groups * sub // waves_of if waves_of else 0
+    if sub < total and waves:
+        sub = max(1, waves * waves_of // n_groups)
+    return sub * WIDE_ROWS
+
+
+def scratch_bytes(operand: CompactOperand, bsz: int, c_p: int,
+                  tables: Optional[FusedStageTables] = None) -> int:
     """Device scratch of one launch: the heavy segments' partial aggregates
-    and the heavy rows' aggregates, ``B * C_p`` floats each."""
+    and the heavy rows' aggregates, ``B * C_p`` floats each, and on a
+    streamed stage one block's aggregate and active state
+    (:func:`block_rows` on the operand's device x ``(C_p + C_a)``)."""
     part = operand.partition
-    return (part.n_segments + part.n_heavy) * bsz * c_p * 4 if part.n_heavy else 0
+    heavy = (part.n_segments + part.n_heavy) * bsz * c_p * 4 if part.n_heavy else 0
+    if tables is None or tables.route != "streamed":
+        return heavy
+    return heavy + _stream_rows(operand, bsz, tables) * (c_p + tables.c_a) * 4
+
+
+def _stream_rows(operand: CompactOperand, bsz: int, tables: FusedStageTables) -> int:
+    return block_rows(operand.n * bsz, tables.c_p + tables.c_a, tables.plan.n_groups,
+                      wave_blocks(operand.device))
 
 
 #: Most colorings one launch takes: they are the grid's y dimension.
@@ -187,33 +395,52 @@ def check_int32_counts(operand: CompactOperand, bsz: int, tables: FusedStageTabl
 
     The heavy rows' aggregate runs over ``B * C_p`` columns: its column
     index runs to that plus one tile, each segment is one warp item per
-    column tile, and the grid is those items in blocks of 8.  The light and
-    wide kernels' grid is the light ranges by the colorings (the grid's y
-    dimension, at most :data:`MAX_GRID_Y`); a CTA walks a pass's rows times
-    the column tiles of its passive tile, writes its rows' outputs, and
-    indexes the passive state up to ``C_p`` plus one tile.  The split
-    entries are indexed by output and split.  Row and state offsets are
-    64-bit already.
+    column tile, and the grid is those items in blocks of 8.  The
+    ``shared`` kernel's grid is the light ranges by the colorings (the
+    grid's y dimension, at most :data:`MAX_GRID_Y`); a CTA
+    walks a pass's rows times the column tiles of ``C_p``, writes its rows'
+    outputs, and indexes the passive state up to ``C_p`` plus one tile.  A
+    ``streamed`` launch indexes the state rows (``n x B``), fills a block's
+    aggregate and active state as (sub-block, column tile) warp items,
+    runs its eMA over a 1-D grid of (group, sub-block) blocks, and indexes
+    the plan's supports.  The split entries are indexed by output and
+    split.  Row, state and scratch offsets are 64-bit already.
     """
     part = operand.partition
     c_p, int32_max = tables.c_p, blocked_ops.INT32_MAX
     heavy_cols = bsz * c_p
     heavy_items = part.n_segments * -(-heavy_cols // blocked_ops.tile_width(heavy_cols))
-    rows_pass = _rows_per_pass(tables.tile_p if tables.wide else c_p + tables.c_a,
-                               blocked_ops.RANGE_ROWS)
-    counts = (
+    tiles = -(-c_p // blocked_ops.tile_width(c_p))
+    counts = [
         ("heavy column index (B x C_p + one tile)", heavy_cols + 128, int32_max),
         ("heavy items (segments x column tiles)",
          heavy_items + blocked_ops.KERNEL_WARPS, int32_max),
         ("heavy grid (blocks of 8 items)", -(-heavy_items // blocked_ops.KERNEL_WARPS), int32_max),
-        ("light grid (ranges)", part.n_ranges, int32_max),
-        ("grid y (colorings)", bsz, MAX_GRID_Y),
-        ("light-range items (rows x column tiles)",
-         rows_pass * -(-tables.tile_p // blocked_ops.tile_width(c_p)), int32_max),
-        ("light-range outputs (rows x outputs)", rows_pass * tables.n_out, int32_max),
-        ("passive column index (C_p + one tile)", c_p + tables.tile_p, int32_max),
-        ("split entries (outputs x splits)", tables.n_out * tables.n_splits, int32_max),
-    )
+    ]
+    if tables.route == "streamed":
+        plan = tables.plan
+        n_rows = operand.n * bsz
+        rows = _stream_rows(operand, bsz, tables)
+        items = rows // WIDE_ROWS * (tiles + -(-tables.c_a // 128))
+        counts += [
+            ("state rows (n x B + one sub-block)", n_rows + WIDE_ROWS, int32_max),
+            ("fill items (sub-blocks x passive and active column tiles)",
+             items + blocked_ops.KERNEL_WARPS, int32_max),
+            ("eMA grid (groups x sub-blocks of a block)", plan.n_groups * rows // WIDE_ROWS,
+             int32_max),
+            ("support columns (all pieces)", int(plan.sup_a.numel() + plan.sup_p.numel()),
+             int32_max),
+        ]
+    else:
+        rows_pass = _rows_per_pass(c_p + tables.c_a, blocked_ops.RANGE_ROWS)
+        counts += [
+            ("light grid (ranges)", part.n_ranges, int32_max),
+            ("grid y (colorings)", bsz, MAX_GRID_Y),
+            ("light-range items (rows x column tiles)", rows_pass * tiles, int32_max),
+            ("light-range outputs (rows x outputs)", rows_pass * tables.n_out, int32_max),
+            ("passive column index (C_p + one tile)", c_p + 128, int32_max),
+        ]
+    counts.append(("split entries (outputs x splits)", tables.n_out * tables.n_splits, int32_max))
     for what, value, limit in counts:
         if value > limit:
             raise ValueError(
@@ -229,9 +456,13 @@ def _library() -> ctypes.CDLL:
     fn = lib.spmm_ema_launch
     if fn.argtypes is None:
         blocked_ops.check_schedule(lib)
+        built = (lib.spmm_ema_wide_threads(), lib.spmm_ema_wide_rows())
+        if built != (WIDE_THREADS, WIDE_ROWS):
+            raise RuntimeError(f"the library's wide eMA blocks are {built} (threads, rows), "
+                               f"the host plans {(WIDE_THREADS, WIDE_ROWS)}")
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, p, i, p, i, i, p, i, i, i, i, p, p, i, p, i, p, p, p, p,
-                       p, p, p, p, p, i, p, p, ctypes.POINTER(ctypes.c_int)]
+                       i, i, p, p, p, p, p, p, p, i, i, p, p, p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return lib
 
@@ -244,13 +475,14 @@ def spmm_ema(
 ) -> torch.Tensor:
     """One fused DP stage: ``(n, B, C_p)``, ``(n, B, C_a)`` fp32 ->
     ``(n, B, n_out)`` fp32, without materialising ``A_G @ M_p`` outside the
-    heavy rows (:func:`scratch_bytes`).
+    heavy rows and, on a streamed stage, one block of rows
+    (:func:`scratch_bytes`).
 
     Each call that launches the CUDA kernel adds one to
-    ``spmm_ema.launches`` and the number of device kernels it issued (1, or
-    3 with heavy rows: their segments and reduction) to
-    ``spmm_ema.device_launches``.  A launch whose 32-bit counts would
-    wrap raises (:func:`check_int32_counts`).
+    ``spmm_ema.launches`` and the number of device kernels it issued to
+    ``spmm_ema.device_launches``: 1 on the ``shared`` route, 2 per block of rows (fill, eMA) on the ``streamed`` one, 2 more
+    with heavy rows (their segments and reduction).  A launch whose 32-bit
+    counts would wrap raises (:func:`check_int32_counts`).
     """
     n = operand.n
     if m_p.dim() != 3 or m_a.dim() != 3:
@@ -279,12 +511,24 @@ def spmm_ema(
     bsz, c_p, c_a = m_p.shape[1], tables.c_p, tables.c_a
     check_int32_counts(operand, bsz, tables)
     part = operand.partition
-    rows_pass = _rows_per_pass(tables.tile_p if tables.wide else c_p + c_a,
-                               blocked_ops.RANGE_ROWS)
-    out = torch.empty((n, bsz, tables.n_out), dtype=torch.float32, device=m_p.device)
+    dev = m_p.device
+    out = torch.empty((n, bsz, tables.n_out), dtype=torch.float32, device=dev)
     width = bsz * c_p if part.n_heavy else 0
-    partials = torch.empty((part.n_segments, width), dtype=torch.float32, device=m_p.device)
-    heavy_agg = torch.empty((part.n_heavy, width), dtype=torch.float32, device=m_p.device)
+    partials = torch.empty((part.n_segments, width), dtype=torch.float32, device=dev)
+    heavy_agg = torch.empty((part.n_heavy, width), dtype=torch.float32, device=dev)
+    plan = tables.plan
+    route = ROUTES.index(tables.route)
+    sub_tile = 1
+    if plan is None:
+        rows = _rows_per_pass(c_p + c_a, blocked_ops.RANGE_ROWS)
+        smem = rows * (c_p + c_a) * 4
+        scratch = None
+    else:
+        rows = _stream_rows(operand, bsz, tables)
+        smem = plan.smem_bytes
+        scratch = torch.empty((rows * (c_p + c_a),), dtype=torch.float32, device=dev)
+        if tables.ent.numel() * 4 > torch.cuda.get_device_properties(dev).L2_cache_size // 2:
+            sub_tile = WIDE_SUB_TILE
     launched = ctypes.c_int(0)
 
     def ptr(t):
@@ -299,10 +543,10 @@ def spmm_ema(
         m_a.data_ptr(),
         c_a,
         bsz,
-        ptr(tables.ent),
+        tables.ent.data_ptr(),
         tables.n_splits,
         tables.n_out,
-        rows_pass,
+        rows,
         part.n_ranges,
         part.range_ptr.data_ptr(),
         part.heavy_slot.data_ptr(),
@@ -313,14 +557,20 @@ def spmm_ema(
         part.seg_end.data_ptr(),
         partials.data_ptr(),
         heavy_agg.data_ptr(),
-        ptr(tables.tile_ptr),
-        ptr(tables.bucket_out),
-        ptr(tables.bucket_ptr),
-        ptr(tables.bucket_a),
-        ptr(tables.bucket_p),
-        tables.tile_p,
+        route,
+        0 if plan is None else plan.n_groups,
+        ptr(plan and plan.group_out),
+        ptr(plan and plan.group_piece),
+        ptr(plan and plan.piece_ent),
+        ptr(plan and plan.piece_sa),
+        ptr(plan and plan.piece_sp),
+        ptr(plan and plan.sup_a),
+        ptr(plan and plan.sup_p),
+        smem,
+        sub_tile,
+        ptr(scratch),
         out.data_ptr(),
-        torch.cuda.current_stream(m_p.device).cuda_stream,
+        torch.cuda.current_stream(dev).cuda_stream,
         ctypes.byref(launched),
     )
     _build.check(status, "spmm_ema")

@@ -12,8 +12,9 @@ on the module's constants with ``monkeypatch``), so that hub rows,
 segments whose count is exact, and rows at the heavy threshold all occur
 on small graphs; two launches on the same inputs must give the same bits
 (no atomics, no timing-dependent order).  Kernel A's wide path (stages
-whose row does not fit shared memory) runs at u20's real widths and, under
-a small budget, at u12's.  Kernel B also runs at the widths of bag extends
+whose row does not fit the shared-memory path's budget, streamed through a
+block aggregate) runs at u20's real widths and, forced by small budgets,
+at u12's.  Kernel B also runs at the widths of bag extends
 (a state of n = 8192 rows flattened to 49,152 and 98,304 columns), and
 refuses widths whose launch counts would pass its 32-bit ints, as kernel
 A's wrapper checks its own at u18's and u20's sizes; non-tree
@@ -161,7 +162,12 @@ def _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=False):
     m_aa = torch.rand((g.n, bsz, binom(k, m_a)), device=card)
     before = spmm_ema.device_launches
     got = spmm_ema(op, m_p, m_aa, tables)
-    assert spmm_ema.device_launches == before + (3 if op.partition.n_heavy else 1)
+    kernels = 1  # streamed: a fill and an eMA per block of rows
+    if tables.route == "streamed":
+        rows = ema_ops.block_rows(g.n * bsz, tables.c_p + tables.c_a, tables.plan.n_groups,
+                                  ema_ops.wave_blocks(card))
+        kernels = 2 * -(-g.n * bsz // rows)
+    assert spmm_ema.device_launches == before + kernels + (2 if op.partition.n_heavy else 0)
     again = spmm_ema(op, m_p, m_aa, tables)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
@@ -169,16 +175,21 @@ def _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=False):
                         col_chunk=64)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert float(got[3051:].abs().max()) == 0.0
+    return tables
 
 
 @pytest.mark.parametrize("part", [0, 2])
-@pytest.mark.parametrize("k,m,m_a,bsz", [(20, 11, 1, 1), (20, 7, 1, 2), (20, 18, 11, 1)])
-def test_spmm_ema_kernel_u20_wide_stages(card, k, m, m_a, bsz, part, monkeypatch):
-    """u20's stages whose row does not fit shared memory: a 184,756-column
-    passive (past 28,672 columns and the 16-bit packing), 38,760, and 77,520
-    passive beside 167,960 active columns; 1024-column passive tiles."""
+@pytest.mark.parametrize("k,m,m_a,bsz,route", [(20, 11, 1, 1, "streamed"),
+                                               (20, 7, 1, 2, "streamed"),
+                                               (20, 18, 11, 1, "streamed")])
+def test_spmm_ema_kernel_u20_wide_stages(card, k, m, m_a, bsz, route, part, monkeypatch):
+    """u20's stages whose row does not fit the shared-memory path: a
+    184,756-column passive (in groups of outputs and pieces of splits
+    through a block aggregate), 38,760 at two colorings, and 77,520
+    passive beside 167,960 active columns (190 outputs at 4 lanes
+    each)."""
     g, op = _hub_operand(card, part, monkeypatch)
-    _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True)
+    assert _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True).route == route
 
 
 @pytest.mark.parametrize("tname,n", [("u18", 1 << 17), ("u20", 1 << 15)])
@@ -186,12 +197,13 @@ def test_spmm_ema_int32_counts_at_u18_and_u20_sizes(card, tname, n):
     """Kernel A's 32-bit launch counts at the full-width cells' sizes (R-MAT
     at 8 sampled edges per vertex, one coloring): every wide stage fits,
     and a launch whose counts would wrap is refused before it reaches the
-    card."""
+    card.  Every wide stage is streamed: u18's two, u20's (20, 7, 1) (run
+    twice), (20, 10, 3), (20, 11, 1) and (20, 18, 11)."""
     from repro_torch.plan.ir import build_template_plan
 
     op = prepare_operand(rmat_graph(n, 8 * n, seed=1), card)
     plan = build_template_plan([get_template(tname)])
-    wide = 0
+    routes = {}
     for cplan in plan.counting_plans:
         for table in cplan.tables:
             if table is None:
@@ -200,27 +212,36 @@ def test_spmm_ema_int32_counts_at_u18_and_u20_sizes(card, tname, n):
             tables = prepare_stage_tables(table.idx_a, table.idx_p, c_p, c_a, card)
             counts = ema_ops.check_int32_counts(op, 1, tables)
             assert max(counts.values()) <= blocked_ops.INT32_MAX
-            wide += tables.wide
             if tables.wide:  # the first count past its limit is named
+                routes.setdefault(tables.route, []).append((table.k, table.m, table.m_a))
                 with pytest.raises(ValueError, match="past the kernel's limit"):
                     ema_ops.check_int32_counts(op, ema_ops.MAX_GRID_Y + 1, tables)
-    assert wide == {"u18": 2, "u20": 5}[tname]  # u20's (20, 7, 1) runs twice
+    assert {route: sorted(stages) for route, stages in routes.items()} == {
+        "u18": {"streamed": [(18, 10, 7), (18, 14, 10)]},
+        "u20": {"streamed": [(20, 7, 1), (20, 7, 1), (20, 10, 3), (20, 11, 1), (20, 18, 11)]},
+    }[tname]
 
 
 @pytest.mark.parametrize("part", range(len(_PARTITIONS)))
 @pytest.mark.parametrize(
-    "k,m,m_a,bsz,budget",
-    [(12, 2, 1, 1, 64), (12, 6, 4, 2, 2048), (12, 12, 5, 3, 4096), (12, 7, 1, 2, 2048)],
+    "k,m,m_a,bsz,budget,wide_smem,route",
+    [(12, 2, 1, 1, 64, 232_448, "streamed"), (12, 6, 4, 2, 2048, 1024, "streamed"),
+     (12, 12, 5, 3, 4096, 4096, "streamed"), (12, 7, 1, 2, 2048, 2048, "streamed")],
 )
-def test_spmm_ema_kernel_wide_path_at_u12_widths(card, k, m, m_a, bsz, budget, part,
-                                                 monkeypatch):
-    """The wide path forced by a small shared-memory budget and 256-column
-    passive tiles: the 12-column leaf (one row per pass), 66 passive beside
-    495 active columns (one tile), 792 and 924 columns (four tiles)."""
+def test_spmm_ema_kernel_wide_path_at_u12_widths(card, k, m, m_a, bsz, budget, wide_smem, route,
+                                                 part, monkeypatch):
+    """The wide path forced by small shared-memory budgets: the 12-column
+    leaf beside a 12-column active state in one piece per group; 66 passive beside 495 active columns
+    streamed under a 64-column support cap; the 1-output root (792 + 792
+    columns) streamed at 32 lanes per output in pieces of 256 columns; 924
+    passive columns streamed in groups of 16 outputs, with blocks of 64
+    state rows (several fill and eMA launches)."""
     monkeypatch.setattr(ema_ops, "SMEM_BUDGET_BYTES", budget)
-    monkeypatch.setattr(ema_ops, "WIDE_TILE_COLS", 256)
+    monkeypatch.setattr(ema_ops, "WIDE_SMEM_BYTES", wide_smem)
+    monkeypatch.setattr(ema_ops, "WIDE_GROUP_MAX", 16)
+    monkeypatch.setattr(ema_ops, "WIDE_SCRATCH_BYTES", 64 * (binom(k, m - m_a) + binom(k, m_a)) * 4)
     g, op = _hub_operand(card, part, monkeypatch)
-    _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True)
+    assert _check_spmm_ema(card, g, op, k, m, m_a, bsz, wide=True).route == route
 
 
 def test_kernel_libraries_walk_the_schedule_the_host_models(card):

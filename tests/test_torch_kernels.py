@@ -4,13 +4,13 @@ On the CPU each wrapper runs its plain PyTorch version; the reference runs
 its Pallas kernels in interpret mode, as its own tests do.  The CUDA
 kernels themselves run only on a card, where ``tests/test_torch_cuda.py``
 (and ``chip_smoke.py``, at full size) holds them against the plain versions.
-The host-side preparation the CUDA kernels read (packed or bucketed stage
-tables, geometry, the compact operand and its edge-balanced partition) is
-checked here, with PyTorch mirrors of both kernels' schedules: heavy
-segments' partial sums reduced in segment order, light ranges, the passive
-aggregate held whole or in row passes, wide stages walked in passive tiles,
-and narrow tiles whose lane groups take several edges per load and fold
-with a butterfly.  Small partitions and shared-memory budgets are set on
+The host-side preparation the CUDA kernels read (packed stage tables, the
+wide path's group-and-piece plans, geometry, the compact operand and its
+edge-balanced partition) is checked here, with PyTorch mirrors of both
+kernels' schedules: heavy segments' partial sums reduced in segment order,
+light ranges, the passive aggregate held whole or in row passes, wide
+stages streamed through a block aggregate in groups and pieces, and narrow tiles whose lane groups take several edges
+per load and fold with a butterfly.  Small partitions and shared-memory budgets are set on
 the modules' constants with ``monkeypatch``.  The mirrors sum in
 another order than the plain versions, so they are held to fp32 tolerance
 (``rtol=1e-5, atol=1e-4`` on values of order 10).
@@ -42,10 +42,11 @@ from repro_torch.kernels.spmm_blocked.ref import spmm_ref
 from repro_torch.kernels.spmm_ema import ops as ema_ops
 from repro_torch.kernels.spmm_ema.ops import (
     SMEM_BUDGET_BYTES,
-    WIDE_TILE_COLS,
+    WIDE_SMEM_BYTES,
     kernel_geometry,
     prepare_stage_tables,
     spmm_ema,
+    stage_route,
 )
 from repro_torch.kernels.spmm_ema.ref import spmm_ema_ref
 
@@ -175,67 +176,114 @@ def test_stage_tables_bucket_like_bucketed_split_entries(k, m, m_a):
     np.testing.assert_array_equal(ent >> 16, ip)
 
 
-def _expected_bucket_order(idx_a, idx_p, tile):
-    """Entries ordered by (passive tile, output, split), by another route."""
-    n_out, n_splits = idx_a.shape
-    o, t = np.divmod(np.arange(n_out * n_splits), n_splits)
-    return np.lexsort((t, o, idx_p.ravel() // tile))
+def _plan_groups(tables):
+    """A streamed stage's plan as numpy: per group ``(o0, o1, pieces)``,
+    each piece ``(sup_a, sup_p, la, lp)`` with ``(G, cnt)`` local entries
+    decoded as unsigned 16-bit halves."""
+    plan = tables.plan
+    go, gp, pe, psa, psp = (x.tolist() for x in (
+        plan.group_out, plan.group_piece, plan.piece_ent, plan.piece_sa, plan.piece_sp))
+    ent = tables.ent.numpy().view(np.uint32).astype(np.int64)
+    sup_a, sup_p = plan.sup_a.numpy(), plan.sup_p.numpy()
+    groups = []
+    for g in range(plan.n_groups):
+        size, pieces = go[g + 1] - go[g], []
+        for j in range(gp[g], gp[g + 1]):
+            x = ent[pe[j]:pe[j + 1]].reshape(-1, size).T  # split-major -> (G, cnt)
+            pieces.append((sup_a[psa[j]:psa[j + 1]], sup_p[psp[j]:psp[j + 1]],
+                           x & 0xFFFF, x >> 16))
+        groups.append((go[g], go[g + 1], pieces))
+    return groups
 
 
-def _check_wide_tables(tables, idx_a, idx_p, c_p):
-    tile = tables.tile_p
-    order = _expected_bucket_order(idx_a, idx_p, tile)
-    np.testing.assert_array_equal(tables.bucket_a.numpy(), idx_a.ravel()[order])
-    np.testing.assert_array_equal(tables.bucket_p.numpy(), idx_p.ravel()[order])
-    ptr, out, tile_ptr = (x.numpy().astype(np.int64) for x in (
-        tables.bucket_ptr, tables.bucket_out, tables.tile_ptr))
-    assert ptr[0] == 0 and ptr[-1] == idx_a.size and np.all(np.diff(ptr) >= 1)
-    assert tile_ptr.size == -(-c_p // tile) + 1 and tile_ptr[-1] == out.size
-    owner = np.repeat(np.arange(out.size), np.diff(ptr))  # bucket of each entry
-    tile_of = np.repeat(np.arange(tile_ptr.size - 1), np.diff(tile_ptr))
-    np.testing.assert_array_equal(tile_of[owner], tables.bucket_p.numpy() // tile)
-    np.testing.assert_array_equal(out[owner], np.repeat(np.arange(idx_a.shape[0]),
-                                                        idx_a.shape[1])[order])
+#: Small widths forced onto the streamed route: (k, m, m_a, WIDE_SMEM_BYTES,
+#: WIDE_GROUP_MAX) -- supports of at most 40 / 24 / 64 columns, groups of at
+#: most 64 / 32 / 16 outputs.
+_FORCED_STREAMED = [(10, 5, 1, 640, 64), (9, 5, 4, 384, 32), (12, 6, 4, 1024, 16)]
 
 
-@pytest.mark.parametrize("k,m,m_a", [(10, 5, 1), (9, 5, 4)])
-def test_wide_stage_tables_bucket_like_bucketed_split_entries(k, m, m_a, monkeypatch):
-    """A stage whose row does not fit shared memory (here under a budget of
-    520 bytes, 128-column tiles) is bucketed by (passive tile, output):
-    per tile, the non-empty rows of ``bucketed_split_entries(table, tile)``
-    in output order, each in split order, with absolute passive columns."""
-    monkeypatch.setattr(ema_ops, "SMEM_BUDGET_BYTES", 520)
-    monkeypatch.setattr(ema_ops, "WIDE_TILE_COLS", 128)
-    table = build_split_table(k, m, m_a)
-    c_p = binom(k, m - m_a)
-    tables = prepare_stage_tables(table.idx_a, table.idx_p, c_p, binom(k, m_a), "cpu")
-    assert tables.wide and tables.ent is None and tables.tile_p == min(c_p, 128)
-    _check_wide_tables(tables, table.idx_a, table.idx_p, c_p)
-    tile_ptr, bucket_out, bucket_ptr = (x.tolist() for x in (
-        tables.tile_ptr, tables.bucket_out, tables.bucket_ptr))
-    for pt, (lo, width, ia, ip, va) in enumerate(bucketed_split_entries(table, tables.tile_p)):
-        counts = ia.shape[1] * np.ones(table.n_out, int) if va is None else va.sum(1).astype(int)
-        js = range(tile_ptr[pt], tile_ptr[pt + 1])
-        assert [bucket_out[j] for j in js] == np.flatnonzero(counts).tolist()
-        for j in js:
-            o, sl = bucket_out[j], slice(bucket_ptr[j], bucket_ptr[j + 1])
-            np.testing.assert_array_equal(tables.bucket_a[sl].numpy(), ia[o, :counts[o]])
-            np.testing.assert_array_equal(tables.bucket_p[sl].numpy() - lo, ip[o, :counts[o]])
+def _force_streamed(monkeypatch, wide_smem, group_max):
+    monkeypatch.setattr(ema_ops, "SMEM_BUDGET_BYTES", 256)
+    monkeypatch.setattr(ema_ops, "WIDE_SMEM_BYTES", wide_smem)
+    monkeypatch.setattr(ema_ops, "WIDE_GROUP_MAX", group_max)
 
 
-@pytest.mark.parametrize("k,m,m_a", [(20, 11, 1), (20, 7, 1), (20, 18, 11)])
-def test_u20_wide_stages_prepare_tables(k, m, m_a):
-    """u20's stages past the shared-memory budget: (20, 11, 1) has a
-    184,756-column passive (past the 16-bit packing too), (20, 7, 1) 38,760
-    columns, (20, 18, 11) 77,520 passive and 167,960 active columns.  Each
-    is bucketed by 1024-column passive tiles and gets 16 rows per pass."""
+@pytest.mark.parametrize("k,m,m_a,wide_smem,group_max", _FORCED_STREAMED)
+def test_wide_plan_takes_every_entry_once_in_split_order(k, m, m_a, wide_smem, group_max,
+                                                         monkeypatch):
+    """Every (output, split) entry of a streamed stage appears exactly once:
+    the groups tile the outputs in order, and an output's entries, piece
+    after piece, mapped back through the pieces' supports, are its row of
+    the split table in split order.  Each piece's supports are sorted,
+    distinct, exactly the columns its entries read, and fit the cap."""
+    _force_streamed(monkeypatch, wide_smem, group_max)
     table = build_split_table(k, m, m_a)
     c_p, c_a = binom(k, m - m_a), binom(k, m_a)
     tables = prepare_stage_tables(table.idx_a, table.idx_p, c_p, c_a, "cpu")
-    assert tables.wide and tables.tile_p == WIDE_TILE_COLS == 1024
-    assert kernel_geometry(c_p, c_a, 16) == 16
-    assert 16 * WIDE_TILE_COLS * 4 <= SMEM_BUDGET_BYTES
-    _check_wide_tables(tables, table.idx_a, table.idx_p, c_p)
+    assert tables.route == "streamed" and tables.wide
+    groups = _plan_groups(tables)
+    assert [g[0] for g in groups] == list(range(0, table.n_out, tables.plan.max_group))
+    assert groups[-1][1] == table.n_out and len(groups) > 1
+    assert tables.plan.n_pieces > len(groups)  # some group is cut into pieces
+    for o0, o1, pieces in groups:
+        got_a = np.concatenate([sa[la] for sa, sp, la, lp in pieces], axis=1)
+        got_p = np.concatenate([sp[lp] for sa, sp, la, lp in pieces], axis=1)
+        np.testing.assert_array_equal(got_a, table.idx_a[o0:o1])
+        np.testing.assert_array_equal(got_p, table.idx_p[o0:o1])
+        for sa, sp, la, lp in pieces:
+            np.testing.assert_array_equal(sa, np.unique(sa[la]))
+            np.testing.assert_array_equal(sp, np.unique(sp[lp]))
+            assert (sa.size + sp.size) * ema_ops.WIDE_ROWS * 4 <= wide_smem
+    assert tables.plan.smem_bytes <= wide_smem
+    staged = sum(sa.size + sp.size for _, _, pieces in groups for sa, sp, _, _ in pieces)
+    assert staged == tables.plan.staged_columns
+
+
+#: The wide stages of u18 and u20 and the route each takes: all streamed,
+#: also the three whose row would fit a block's 232,448 shared bytes.
+_WIDE_STAGES = [((18, 10, 7), "streamed"), ((18, 14, 10), "streamed"), ((20, 7, 1), "streamed"),
+                ((20, 10, 3), "streamed"), ((20, 11, 1), "streamed"), ((20, 18, 11), "streamed")]
+
+
+@pytest.mark.parametrize("stage,route", _WIDE_STAGES)
+def test_u18_u20_wide_stages_fit_a_block(stage, route):
+    """Each wide stage of u18 and u20 is streamed, with a plan that fits the
+    card's 232,448 shared bytes: its largest piece's supports, four rows
+    of them, fit, with local indices below 2^16."""
+    k, m, m_a = stage
+    table = build_split_table(k, m, m_a)
+    c_p, c_a = binom(k, m - m_a), binom(k, m_a)
+    assert WIDE_SMEM_BYTES == 232_448
+    tables = prepare_stage_tables(table.idx_a, table.idx_p, c_p, c_a, "cpu")
+    assert tables.route == route == stage_route(c_p, c_a) and tables.wide
+    plan = tables.plan
+    assert kernel_geometry(c_p, c_a, 16) == ema_ops.WIDE_ROWS
+    assert plan.smem_bytes == plan.max_support * 16 <= WIDE_SMEM_BYTES
+    assert plan.max_group <= ema_ops.WIDE_GROUP_MAX == 4 * ema_ops.WIDE_THREADS
+    assert tables.ent.numel() == table.n_out * table.n_splits
+    ent = tables.ent.numpy().view(np.uint32)
+    assert int((ent & 0xFFFF).max()) < plan.max_support
+    assert int((ent >> 16).max()) < plan.max_support
+
+
+def test_unsigned_entry_decode_round_trips_past_2_15(monkeypatch):
+    """(20, 7, 1), a 38,760-column passive, planned under a support cap of
+    40,000 columns and groups of up to all 77,520 outputs: its pieces'
+    local passive positions pass 2^15, so the entries pass 2^31 as int32,
+    and read as unsigned halves through the supports they give back the
+    split table."""
+    monkeypatch.setattr(ema_ops, "WIDE_SMEM_BYTES", 16 * 40_000)
+    monkeypatch.setattr(ema_ops, "WIDE_GROUP_MAX", 77_520)
+    table = build_split_table(20, 7, 1)
+    tables = prepare_stage_tables(table.idx_a, table.idx_p, binom(20, 6), binom(20, 1), "cpu")
+    assert tables.route == "streamed" and binom(20, 6) == 38_760
+    assert tables.plan.max_support > 1 << 15
+    assert tables.ent.numpy().min() < 0  # an int32 read would take the passive half as negative
+    for o0, o1, pieces in _plan_groups(tables):
+        np.testing.assert_array_equal(
+            np.concatenate([sa[la] for sa, sp, la, lp in pieces], axis=1), table.idx_a[o0:o1])
+        np.testing.assert_array_equal(
+            np.concatenate([sp[lp] for sa, sp, la, lp in pieces], axis=1), table.idx_p[o0:o1])
 
 
 @pytest.mark.parametrize("n_out", [1, 66, 924, 3432, 12870])
@@ -314,58 +362,78 @@ def _mirror_spmm_blocked(op, m):
     return out
 
 
-def _mirror_wide_ema(tables, act, agg):
-    """``spmm_ema_wide_kernel``'s eMA over ``(rows, C_a)`` / ``(rows, C_p)``:
-    outputs zeroed, then per passive tile each non-empty bucket's entries
-    added in split order."""
-    out = torch.zeros((act.shape[0], tables.n_out))
-    tile_ptr, bucket_out, bucket_ptr, bucket_a, bucket_p = (x.tolist() for x in (
-        tables.tile_ptr, tables.bucket_out, tables.bucket_ptr, tables.bucket_a,
-        tables.bucket_p))
-    for pt in range(len(tile_ptr) - 1):
-        for j in range(tile_ptr[pt], tile_ptr[pt + 1]):
-            acc = out[:, bucket_out[j]].clone()
-            for e in range(bucket_ptr[j], bucket_ptr[j + 1]):
-                assert pt * tables.tile_p <= bucket_p[e] < (pt + 1) * tables.tile_p
-                acc += act[:, bucket_a[e]] * agg[:, bucket_p[e]]
-            out[:, bucket_out[j]] = acc
-    return out
+def _row_sums(op, m_p, rows):
+    """The aggregate of state rows ``rows`` (vertex ``s // B``, coloring
+    ``s % B``) as the kernels sum it: heavy rows from the segment sums,
+    light rows by the warp walk."""
+    n, bsz, c_p = m_p.shape
+    heavy_agg = _heavy_sums(op, m_p.reshape(n, bsz * c_p)).reshape(-1, bsz, c_p)
+    row_ptr, slot = op.row_ptr.tolist(), op.partition.heavy_slot.tolist()
+    groups = _lane_groups(c_p)
+    return torch.stack([
+        heavy_agg[slot[s // bsz], s % bsz] if slot[s // bsz] >= 0 else
+        _walk(m_p[:, s % bsz], op.src, row_ptr[s // bsz], row_ptr[s // bsz + 1], groups)
+        for s in rows])
+
+
+def _mirror_streamed(op, m_p, m_a, tables):
+    """The streamed route: per block of :func:`block_rows` state rows the
+    rows' aggregate (``wide_aggregate_kernel``), then per (group, 4-row
+    sub-block) ``wide_ema_kernel``: ``g`` lanes per output, lane ``j``
+    applying entries ``j, j + g, ...`` of each piece in turn to its own
+    sums, then the butterfly."""
+    n, bsz, c_p = m_p.shape
+    n_state = n * bsz
+    act = m_a.reshape(n_state, -1)
+    groups = _plan_groups(tables)
+    out = torch.full((n_state, tables.n_out), float("nan"))
+    step = ema_ops.block_rows(n_state, c_p + tables.c_a, tables.plan.n_groups)
+    assert step % ema_ops.WIDE_ROWS == 0
+    for s0 in range(0, n_state, step):
+        agg = _row_sums(op, m_p, range(s0, min(n_state, s0 + step)))
+        for r0 in range(0, agg.shape[0], ema_ops.WIDE_ROWS):
+            rs = slice(r0, r0 + ema_ops.WIDE_ROWS)
+            for o0, o1, pieces in groups:
+                g = 1
+                while g < 32 and (o1 - o0) * g * 2 <= ema_ops.WIDE_THREADS:
+                    g *= 2
+                lanes = torch.zeros((g, agg[rs].shape[0], o1 - o0))
+                for sa, sp, la, lp in pieces:
+                    rows = act[s0 + r0:s0 + r0 + ema_ops.WIDE_ROWS]
+                    prods = rows[:, sa][:, la] * agg[rs][:, sp][:, lp]
+                    for j in range(g):
+                        for t in range(j, la.shape[1], g):
+                            lanes[j] += prods[:, :, t]
+                out[s0 + r0:s0 + r0 + ema_ops.WIDE_ROWS, o0:o1] = _fold(lanes)
+    return out.reshape(n, bsz, tables.n_out)
 
 
 def _mirror_fused_kernel(op, m_p, m_a, tables, rows_pass=None):
     """``spmm_ema.cu``: the heavy rows' aggregate over the ``B * C_p`` row
-    first; then per (light range, coloring) CTA, per pass of ``rows_pass``
-    rows, the rows' passive aggregate (light rows walked, heavy rows copied;
-    per column the same sums whether the walk covers all of ``C_p`` or one
-    passive tile) and the eMA: where a row fits shared memory, ``g`` lanes
-    per (row, output), each applying the split entries ``j, j + g, ...`` in
-    split order before the fold; on a wide stage, the buckets of each
-    passive tile in turn (:func:`_mirror_wide_ema`)."""
+    first; then, on the ``shared`` route, per (light range, coloring) CTA,
+    per pass of ``rows_pass`` rows, the rows' passive aggregate (light rows
+    walked, heavy rows copied) and the eMA: ``g`` lanes per (row, output)
+    of the CTA's 256 threads, each applying the split entries ``j, j + g,
+    ...`` in split order before the fold.  The ``streamed`` route is
+    :func:`_mirror_streamed`."""
+    if tables.route == "streamed":
+        return _mirror_streamed(op, m_p, m_a, tables)
     part = op.partition
     n, bsz, c_p = m_p.shape
     n_out, n_splits = tables.n_out, tables.n_splits
+    threads = 256
     rows_pass = rows_pass or kernel_geometry(c_p, tables.c_a, blocked_ops.RANGE_ROWS)
-    if not tables.wide:
-        ent = tables.ent.long().T
-        idx_a, idx_p = ent & 0xFFFF, ent >> 16
-    heavy_agg = _heavy_sums(op, m_p.reshape(n, bsz * c_p)).reshape(-1, bsz, c_p)
-    row_ptr, slot = op.row_ptr.tolist(), part.heavy_slot.tolist()
-    groups = _lane_groups(c_p)
+    ent = torch.from_numpy(tables.ent.numpy().view(np.uint32).astype(np.int64)).T
+    idx_a, idx_p = ent & 0xFFFF, ent >> 16
     rp = part.range_ptr.tolist()
     out = torch.full((n, bsz, n_out), float("nan"))
     for r in range(part.n_ranges):
         for b in range(bsz):
             for p0 in range(rp[r], rp[r + 1], rows_pass):
                 vs = list(range(p0, min(rp[r + 1], p0 + rows_pass)))
-                agg = torch.stack([
-                    heavy_agg[slot[v], b] if slot[v] >= 0 else
-                    _walk(m_p[:, b], op.src, row_ptr[v], row_ptr[v + 1], groups)
-                    for v in vs])
-                if tables.wide:
-                    out[vs, b] = _mirror_wide_ema(tables, m_a[vs, b], agg)
-                    continue
+                agg = _row_sums(op, m_p, [v * bsz + b for v in vs])
                 g = 1
-                while g < 32 and g < n_splits and len(vs) * n_out * g * 2 <= 256:
+                while g < 32 and g < n_splits and len(vs) * n_out * g * 2 <= threads:
                     g *= 2
                 prods = m_a[vs, b][:, idx_a] * agg[:, idx_p]  # (rows, n_out, n_splits)
                 lanes = torch.zeros((g, len(vs), n_out))
@@ -423,17 +491,24 @@ def test_spmm_ema_schedule_mirror(k, m, m_a, bsz, rows_pass, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "k,m,m_a,bsz",
-    [(10, 5, 1, 2), (8, 8, 4, 1), (9, 5, 4, 3)],
+    "k,m,m_a,bsz,wide_smem,route",
+    [(10, 5, 1, 2, 640, "streamed"), (8, 8, 4, 1, 1024, "streamed"),
+     (9, 5, 4, 3, 384, "streamed")],
 )
-def test_spmm_ema_wide_schedule_mirror(k, m, m_a, bsz, monkeypatch):
-    """Kernel A's wide path, under a shared-memory budget of 520 bytes and
-    128-column passive tiles: (10, 5, 1) walks two passive tiles of 210
-    columns, one row per pass; (8, 8, 4) one 70-column tile; (9, 5, 4) a
-    narrow 9-column passive with a 126-column active state, 14 rows per
-    pass.  Equal to the plain version and the reference's oracle."""
-    monkeypatch.setattr(ema_ops, "SMEM_BUDGET_BYTES", 520)
-    monkeypatch.setattr(ema_ops, "WIDE_TILE_COLS", 128)
+def test_spmm_ema_wide_schedule_mirror(k, m, m_a, bsz, wide_smem, route, monkeypatch):
+    """Kernel A's wide path, forced by a 256-byte budget of the
+    shared-memory path: (10, 5, 1) over 210 passive columns in groups of at
+    most 64 outputs, pieces of at most 40 support columns and blocks of 20
+    state rows (13 blocks, the last ragged); (8, 8, 4), the 1-output root
+    at 32 lanes per output, its 70 splits in pieces of at most 64 support
+    columns; (9, 5, 4) with a narrow 9-column passive beside a 126-column
+    active state.  Equal to the plain version and the reference's
+    oracle."""
+    monkeypatch.setattr(ema_ops, "SMEM_BUDGET_BYTES", 256)
+    monkeypatch.setattr(ema_ops, "WIDE_SMEM_BYTES", wide_smem)
+    monkeypatch.setattr(ema_ops, "WIDE_GROUP_MAX", 64)
+    monkeypatch.setattr(ema_ops, "WIDE_SCRATCH_BYTES", 20 * (binom(k, m - m_a) + binom(k, m_a)) * 4)
+    assert stage_route(binom(k, m - m_a), binom(k, m_a)) == route
     _check_fused_schedule(k, m, m_a, bsz, None, monkeypatch, wide=True)
 
 
@@ -522,24 +597,49 @@ def test_spmm_blocked_refuses_counts_past_int32():
 def test_spmm_ema_refuses_counts_past_int32():
     """Kernel A's launch counts, checked on the host before a launch (the
     card test checks them at u18's and u20's sizes): u20's widest passive
-    (184,756 columns) over 2^20 synthetic heavy segments fits one coloring
-    and not two; the colorings are the grid's y dimension; the heavy rows'
-    column index is B x C_p."""
+    (184,756 columns, streamed) indexes its state rows, fills its one block
+    of 600 rows as (sub-block, passive or active column tile) warp items
+    and runs its eMA over a grid of (group, sub-block) blocks; u20's
+    (20, 7, 1) likewise, its scratch and grid over its own plan.  A block
+    of rows is cut to whole waves of a card's SMs (none on the CPU).  Over
+    2^20 synthetic heavy segments the widest fits one coloring and not
+    two; the colorings are the grid's y dimension on the shared route; the
+    heavy rows' column index is B x C_p."""
     g = rmat_graph(600, 4000, seed=3)
     op = prepare_operand(g, "cpu")
     widest = build_split_table(20, 11, 1)
     tables = prepare_stage_tables(widest.idx_a, widest.idx_p, binom(20, 10), binom(20, 1), "cpu")
-    assert tables.wide
+    assert tables.route == "streamed"
     counts = ema_ops.check_int32_counts(op, 1, tables)
+    tiles = -(-184_756 // 128)
+    assert ema_ops.block_rows(600, 184_776, 42, 132) == 600  # all 150 sub-blocks: 1 GiB holds 363
+    assert ema_ops.block_rows(1 << 15, 184_776, 42, 132) == 4 * (115 * 132 // 42)  # whole waves
+    assert ema_ops.block_rows(1 << 15, 184_776, 42) == 4 * 363  # no cut without a card
+    assert ema_ops.wave_blocks("cpu") == 0
     assert counts["split entries (outputs x splits)"] == 167_960 * 11
-    assert counts["passive column index (C_p + one tile)"] == 184_756 + WIDE_TILE_COLS
-    assert counts["light-range items (rows x column tiles)"] == 16 * (WIDE_TILE_COLS // 128)
-    assert counts["light-range outputs (rows x outputs)"] == 16 * 167_960
-    assert counts["light grid (ranges)"] == op.partition.n_ranges
+    assert counts["state rows (n x B + one sub-block)"] == 604
+    fill = counts["fill items (sub-blocks x passive and active column tiles)"]
+    assert fill == 150 * (tiles + 1) + 8
+    assert counts["eMA grid (groups x sub-blocks of a block)"] == 42 * 150
+    assert tables.plan.n_groups == 42
+    assert counts["support columns (all pieces)"] == tables.plan.staged_columns
+    assert ema_ops.scratch_bytes(op, 1, 184_756, tables) == 600 * 184_776 * 4
+    once_table = build_split_table(20, 7, 1)
+    once = prepare_stage_tables(once_table.idx_a, once_table.idx_p, binom(20, 6), binom(20, 1),
+                                "cpu")
+    assert once.route == "streamed" and "light grid (ranges)" not in ema_ops.check_int32_counts(
+        op, 1, once)
+    counts = ema_ops.check_int32_counts(op, 1, once)
+    assert counts["eMA grid (groups x sub-blocks of a block)"] == once.plan.n_groups * 150
+    assert counts["fill items (sub-blocks x passive and active column tiles)"] == (
+        150 * (-(-38_760 // 128) + 1) + 8)
+    assert ema_ops.scratch_bytes(op, 1, 38_760, once) == 600 * 38_780 * 4
+    assert ema_ops.scratch_bytes(op, 1, 38_760) == 0  # no heavy rows, no plan
+    with pytest.raises(ValueError, match="heavy column index"):  # named before the grid
+        ema_ops.check_int32_counts(op, 11_624 * 5, once)
     many = torch.zeros(2**20, dtype=torch.int32)
     segmented = dataclasses.replace(op, partition=dataclasses.replace(op.partition, seg_beg=many,
                                                                       seg_end=many))
-    tiles = -(-184_756 // 128)
     assert ema_ops.check_int32_counts(segmented, 1, tables)[
         "heavy items (segments x column tiles)"] == 2**20 * tiles + 8
     with pytest.raises(ValueError, match="heavy items"):

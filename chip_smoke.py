@@ -921,7 +921,11 @@ def device_profile(fn, classify=None) -> dict:
     def device_us(evt):
         return getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
 
-    averages = prof.key_averages()
+    # a record_function range's device copy is a user annotation whose device
+    # time is the range's whole length: it is no work of the device's own
+    averages = [e for e in prof.key_averages()
+                if not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("repro_torch.")]
     # device-side events (kernels, copies); operator rows would count them twice
     events = [e for e in averages
               if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]

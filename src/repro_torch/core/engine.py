@@ -40,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.exec.base import EngineBackend, make_backend
 from repro_torch.exec.select import ENGINE_BACKENDS, resolve_backend_config
@@ -525,7 +526,8 @@ class CountingEngine:
         if pad:
             keys = torch.cat([keys, keys[-1:].expand(pad, 2)])
         vals = self.backend_impl.counts_for_keys_chunk(keys)
-        out = vals.cpu().numpy().astype(np.float64)[:m]
+        with obs.span("repro_torch.engine.copy_back"):
+            out = vals.cpu().numpy().astype(np.float64)[:m]
         return _faults.corrupt_result("launch", out, ctx=f"backend={self.backend}")
 
     def count_keys(self, keys) -> np.ndarray:
@@ -546,7 +548,8 @@ class CountingEngine:
             keys = torch.cat([keys, keys[-1:].expand(pad, 2)])
         run = self.backend_impl.counts_for_keys_chunk
         outs = [run(keys[lo : lo + chunk]) for lo in range(0, keys.shape[0], chunk)]
-        return torch.cat(outs, dim=0).cpu().numpy().astype(np.float64)[:iters]
+        with obs.span("repro_torch.engine.copy_back"):
+            return torch.cat(outs, dim=0).cpu().numpy().astype(np.float64)[:iters]
 
     def estimate(self, iterations: int = 32, seed: int = 0) -> List[EstimateResult]:
         """Run ``iterations`` random colorings from ``split(prng_key(seed),

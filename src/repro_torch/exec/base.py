@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.colorsets import bucketed_split_entries
 from repro_torch.core.prng import randint
 
@@ -247,7 +248,8 @@ class EngineBackend:
         estimates, on every backend and in the reference.
         """
         eng = self.engine
-        colors = randint(keys.to(eng.device), (eng.graph.n,), 0, eng.k)
+        with obs.span("repro_torch.engine.draw", device=eng.device):
+            colors = randint(keys.to(eng.device), (eng.graph.n,), 0, eng.k)
         return eng._get_chunk_fn()(colors)
 
     def make_chunk_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -21,6 +21,7 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.colorsets import binom
 from repro_torch.core.counting import fused_aggregate_ema_grouped
 from repro_torch.core.graph import build_sell
@@ -123,9 +124,18 @@ class LocalBackend(EngineBackend):
         bag programs through the same slots and liveness schedule.
         """
         eng = self.engine
+        with obs.span("repro_torch.engine.leaf"):
+            leaf = torch.nn.functional.one_hot(colors.t().long(), eng.k).to(eng.policy.store_dtype)
+        with obs.span("repro_torch.engine.walk"):
+            return self._walk(leaf)
+
+    def _walk(self, leaf: torch.Tensor) -> torch.Tensor:
+        """The DP walk from the one-hot ``(n, B, k)`` leaf; each exec group
+        and bag op is one ``repro_torch.engine.stage`` span at its ``(plan,
+        sub)`` address."""
+        eng = self.engine
         ir = eng.plan_ir
         pol = eng.policy
-        leaf = torch.nn.functional.one_hot(colors.t().long(), eng.k).to(pol.store_dtype)
         free_at = ir.free_at
         slots: Dict[str, torch.Tensor] = {}
         totals = []
@@ -143,9 +153,9 @@ class LocalBackend(EngineBackend):
                     if op.kind == "leaf":
                         slots[key] = leaf
                     elif key not in slots:
-                        slots[key] = self._run_bag_op(cplan, canons, p_idx, i, op, leaf, slots).to(
-                            pol.store_dtype
-                        )
+                        with obs.span("repro_torch.engine.stage", eng.device, (p_idx, i)):
+                            state = self._run_bag_op(cplan, canons, p_idx, i, op, leaf, slots)
+                        slots[key] = state.to(pol.store_dtype)
                     for dead in free_at.get(pos, ()):
                         slots.pop(dead, None)
                     pos += 1
@@ -174,9 +184,10 @@ class LocalBackend(EngineBackend):
                         stage_inputs.append(
                             (slots[ir.canons[q][sub_m.active]], self.stage_tables[(q, j)])
                         )
-                    outs = self._group_aggregate(
-                        (p_idx, i), slots[canons[sub.passive]], stage_inputs
-                    )
+                    with obs.span("repro_torch.engine.stage", eng.device, (p_idx, i)):
+                        outs = self._group_aggregate(
+                            (p_idx, i), slots[canons[sub.passive]], stage_inputs
+                        )
                     for (q, j), m_s in zip(members, outs):
                         slots[ir.canons[q][j]] = m_s.to(pol.store_dtype)
                 for dead in free_at.get(pos, ()):

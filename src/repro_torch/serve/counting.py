@@ -253,6 +253,7 @@ class CountingService:
         self._active: Dict[Tuple, List[Query]] = {}  # engine key -> live queries
         self._rr: Deque[Tuple] = deque()  # round-robin ring of keys with work
         self.launch_log: List[Tuple] = []  # engine key per launch, in order
+        self.last_dealt: Dict[int, int] = {}  # qid -> colorings the latest step dealt it
         self.queries_completed = 0
         self.queries_cancelled = 0
         self.queries_failed = 0
@@ -469,6 +470,7 @@ class CountingService:
         """
         now = self.clock.now()
         self._sweep_deadlines(now)
+        self.last_dealt = {}
 
         skipped: List[Tuple] = []
         key: Optional[Tuple] = None
@@ -500,7 +502,7 @@ class CountingService:
         # deal slots round-robin across this key's queries (iteration order
         # per query is preserved: each deal hands out its next index)
         alloc: List[Tuple[Query, int]] = []
-        dealt: Dict[int, int] = {}
+        dealt = self.last_dealt
         ring = deque(queries)
         while ring and len(alloc) < chunk:
             q = ring.popleft()

@@ -55,6 +55,7 @@ from concurrent.futures import CancelledError
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Set, Tuple
 
+from repro_torch import obs
 from repro_torch.testing import faults as _faults
 
 from .counting import CountingService, Query
@@ -138,6 +139,7 @@ class QueryFuture:
         submit_kwargs: Dict,
         admission_bytes: int,
         deadline_at: Optional[float] = None,
+        submitted_ns: Optional[int] = None,
     ):
         self._frontend = frontend
         self.tenant = tenant
@@ -154,9 +156,11 @@ class QueryFuture:
         self.submitted_at: float = frontend._clock.now()
         self.admitted_at: Optional[float] = None
         self.resolved_at: Optional[float] = None
-        self.submitted_round: int = frontend._rounds
         self.admitted_round: Optional[int] = None
         self.resolved_round: Optional[int] = None
+        # its life on the profiler's clock, while tracing is on; submitted
+        # when ``submit`` was called, before pricing and the lock
+        self._record: Optional[obs.Request] = obs.request(tenant, submitted_ns)
 
     # -- inspection (any thread) --------------------------------------------
 
@@ -359,13 +363,22 @@ class ServiceFrontend:
         the frontend is draining after a watchdog trip; otherwise never
         blocks on the scheduler.
         """
+        with obs.span("repro_torch.serve.submit") as call:
+            return self._submit(tenant, graph_ref, templates, submit_kwargs, call.start_ns)
+
+    def _submit(self, tenant: str, graph_ref: str, templates, submit_kwargs,
+                called_ns: Optional[int]) -> QueryFuture:
         submit_kwargs.pop("tenant", None)  # stamped by the scheduler
         deadline = submit_kwargs.pop("deadline", None)
         # price the query BEFORE taking the queue slot: resolving templates
         # and planning are pure host work, safe outside the lock
-        tset = self._svc._resolve_templates(templates)
-        est = self._svc.admission_bytes(graph_ref, tset)
-        with self._work:
+        with obs.span("repro_torch.serve.price"):
+            tset = self._svc._resolve_templates(templates)
+            est = self._svc.admission_bytes(graph_ref, tset)
+        # a round holds the lock through its launch
+        with obs.span("repro_torch.serve.lock_wait"):
+            self._work.acquire()
+        try:
             if self._state == "draining":
                 self.rejections["draining"] += 1
                 raise QoSRejected(
@@ -400,10 +413,13 @@ class ServiceFrontend:
                 deadline_at=(
                     None if deadline is None else self._clock.now() + float(deadline)
                 ),
+                submitted_ns=called_ns,
             )
             state.queue.append(fut)
             state.counters["submitted"] += 1
             self._work.notify_all()
+        finally:
+            self._work.release()
         return fut
 
     def prewarm(self, graph_ref: str, templates) -> Tuple:
@@ -501,7 +517,8 @@ class ServiceFrontend:
                 )
             self._rounds += 1
             try:
-                return self._step_round()
+                with obs.span("repro_torch.serve.round"):
+                    return self._step_round()
             except ServiceError:
                 raise  # a prior trip re-surfacing; already handled
             except BaseException as exc:
@@ -550,7 +567,8 @@ class ServiceFrontend:
         if self._warm_queue:
             key, graph_ref, tset = self._warm_queue.popleft()
             if key not in self._warm_done:
-                self._svc.prewarm(graph_ref, tset)
+                with obs.span("repro_torch.serve.warm"):
+                    self._svc.prewarm(graph_ref, tset)
                 self._warm_done.add(key)
                 info["warmed"] = key
 
@@ -567,12 +585,33 @@ class ServiceFrontend:
                 if task in self._tune_done:
                     continue
                 graph_ref, tset = task
-                self._svc.tune(graph_ref, tset)
+                with obs.span("repro_torch.serve.tune"):
+                    self._svc.tune(graph_ref, tset)
                 self._tune_done.add(task)
                 self.tunes_run += 1
                 info["tuned"] = (graph_ref, tuple(t.name for t in tset))
                 break
 
+        with obs.span("repro_torch.serve.admit"):
+            self._admit(now, info)
+        with obs.span("repro_torch.serve.launch") as launch:
+            info["launched"] = self._svc.step()
+        with obs.span("repro_torch.serve.complete"):
+            self._complete(info, launch.start_ns)
+
+        self._last_round_at = self._clock.now()
+        info["progressed"] = bool(
+            info["warmed"] is not None
+            or info["tuned"] is not None
+            or info["admitted"]
+            or info["launched"] is not None
+            or info["completed"]
+            or info["failed"]
+        )
+        return info
+
+    def _admit(self, now: float, info: Dict) -> None:
+        """The round's admission sweep (caller holds the lock)."""
         for tier in sorted(self._tier_rings, reverse=True):
             ring = self._tier_rings[tier]
             for _ in range(len(ring)):
@@ -616,11 +655,20 @@ class ServiceFrontend:
                 self._inflight_bytes += fut.admission_bytes
                 self._admitted.append(fut)
                 info["admitted"].append((name, fut._query.qid))
+                if fut._record is not None:
+                    fut._record.admit(fut._query.qid)
 
-        info["launched"] = self._svc.step()
-
+    def _complete(self, info: Dict, launch_ns: Optional[int]) -> None:
+        """The round's completion sweep (caller holds the lock);
+        ``launch_ns``: the start of the round's launch, on the profiler's
+        clock while tracing is on, the first-launch stamp of each query it
+        dealt colorings to for the first time."""
+        dealt = self._svc.last_dealt
         still = []
         for fut in self._admitted:
+            rec = fut._record
+            if rec is not None and rec.launched_ns is None and fut._query.qid in dealt:
+                rec.launched_ns = launch_ns
             if fut._query.finished:
                 state = self._tenants[fut.tenant]
                 state.inflight -= 1
@@ -638,17 +686,6 @@ class ServiceFrontend:
             else:
                 still.append(fut)
         self._admitted = still
-
-        self._last_round_at = self._clock.now()
-        info["progressed"] = bool(
-            info["warmed"] is not None
-            or info["tuned"] is not None
-            or info["admitted"]
-            or info["launched"] is not None
-            or info["completed"]
-            or info["failed"]
-        )
-        return info
 
     def _fail_future(self, fut: QueryFuture, error: ServiceError) -> None:
         """Resolve one future as failed (caller holds the lock)."""
@@ -698,6 +735,8 @@ class ServiceFrontend:
         fut._state = state
         fut.resolved_at = self._clock.now()
         fut.resolved_round = self._rounds
+        if fut._record is not None:
+            fut._record.resolve(state)
         fut._event.set()
 
     def _unresolved(self) -> int:

@@ -687,7 +687,7 @@ def load_balance(graph, operand, geometries, bsz, widths) -> dict:
                        "row_split_warp_visits": row_split_warp * -(-c_p // 64),
                        "scratch_bytes": ema_ops.scratch_bytes(operand, bsz, c_p),
                        "gather_floor_ms": e * bsz * c_p * 4 / PEAK_BYTES_PER_S * 1e3})
-    spmm = [{"cols": c, "max_warp_visits": blocked_ops.edge_visits(operand, c)["max"],
+    spmm = [{"cols": c, "max_warp_visits": blocked_ops.slab_visits(operand, c)["max"],
              "scratch_bytes": part.n_segments * c * 4} for c in widths]
     out = {
         "blocked_ell_256_pairs": int(pair_sizes.size),
@@ -781,12 +781,15 @@ def table_iii_counts(device) -> dict:
 
 
 def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
-    """Kernel B against its plain version at each width; returns the rows
-    and, per shape, the grid the host partition sizes (not measured, so it
-    stays out of the rows)."""
+    """Kernel B against its plain version at each width, with the launches
+    that walked more than one column slab (``sliced_launches``); returns
+    the rows and, per shape, what the host model gives (the grid's CTAs,
+    slabs, the heaviest warp's edge visits and the launch's bound in them:
+    not measured, so it stays out of the rows)."""
     import torch
 
-    from repro_torch.kernels.spmm_blocked.ops import check_int32_counts, spmm_blocked
+    from repro_torch.kernels.spmm_blocked.ops import (check_int32_counts, slab_visits,
+                                                       spmm_blocked)
     from repro_torch.kernels.spmm_blocked.ref import spmm_ref
 
     n, e = operand.n, operand.num_directed
@@ -800,7 +803,9 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
     rows, grids = [], {}
     for c in widths:
         m = torch.rand((n, c), generator=gen, device=device)
+        sliced = spmm_blocked.sliced_launches
         got = spmm_blocked(operand, m)
+        sliced = spmm_blocked.sliced_launches - sliced
         bitwise = bool(torch.equal(got, spmm_blocked(operand, m)))
         if not bitwise:
             raise AssertionError(f"spmm_blocked C={c}: two launches differ")
@@ -808,8 +813,12 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
         err = max_abs_err(got, want, KERNEL_RTOL, f"spmm_blocked C={c}")
         del got, want
         row = {"shape": f"n={n} C={c}", "cols": c, "max_abs_err": err,
-               "bitwise_repeatable": bitwise}
-        grids[row["shape"]] = check_int32_counts(operand, c)["grid (heavy blocks + light ranges)"]
+               "bitwise_repeatable": bitwise, "sliced_launches": sliced}
+        counts, visits = check_int32_counts(operand, c), slab_visits(operand, c)
+        grids[row["shape"]] = {
+            "grid_ctas": counts["grid x (heavy blocks + light ranges)"] * counts["grid y (slabs)"],
+            "slabs": visits["slabs"], "max_warp_visits": visits["max"],
+            "bound_warp_visits": visits["bound"]}
         nbytes = 2 * n * c * 4 + (n + 1) * 4 + e * 4
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, e * c)
         if device.type == "cuda":
@@ -817,7 +826,7 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
             row["plain_ms"] = time_ms(
                 lambda: spmm_ref(operand.src, operand.dst, n, m, col_chunk=64), 2)
             row["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, m), reps)
-        log(f"[spmm_blocked] {json.dumps(row)} grid_ctas={grids[row['shape']]}")
+        log(f"[spmm_blocked] {json.dumps(row)} model={json.dumps(grids[row['shape']])}")
         rows.append(row)
         del m
     return rows, grids
@@ -4169,7 +4178,7 @@ def run(args, device, sweep) -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "colorings": colorings, "table_iii": table_iii,
              "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
-             "spmm_blocked_grid_ctas": {**spmm_grids, **bag_grids},
+             "spmm_blocked_model": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
              "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,
              "train": train, "gnn": gnn, "recsys": recsys, "launch": launch, "wide": wide, "memory": memory, "mesh": mesh, "kernels": kernels},

@@ -37,6 +37,8 @@ __all__ = [
     "prepare_operand",
     "tile_width",
     "edge_visits",
+    "slab_tiles",
+    "slab_visits",
     "spmm_blocked",
     "SOURCE",
     "HEAVY_DEGREE",
@@ -45,6 +47,7 @@ __all__ = [
     "RANGE_EDGES",
     "KERNEL_WARPS",
     "check_schedule",
+    "check_slabs",
     "check_int32_counts",
 ]
 
@@ -71,6 +74,20 @@ RANGE_EDGES = 4096
 #: Warps per CTA in both kernels (``kWarps`` in ``csrc/edge_walk.cuh``;
 #: :func:`check_schedule` holds it against the built library).
 KERNEL_WARPS = 8
+
+# Kernel B's column slabs (``csrc/spmm_blocked.cu``, ``slab_tiles``;
+# :func:`check_slabs` holds this copy against the built library).
+#: Bytes of M one slab spans: the band the CTAs resident at one moment
+#: gather from stays in L2 (one tile at n = 8192, measured best there).
+SLAB_BYTES = 4 << 20
+#: A product of at most this many tiles (1024 columns) stays one slab, the
+#: schedule kernel A keeps.
+ONE_SLAB_TILES = KERNEL_WARPS
+#: Most slabs in a launch (``gridDim.y``).
+MAX_SLABS = 65_535
+#: The warps :func:`slab_visits` spreads a launch over: the H100 SXM's 132
+#: SMs at 32 resident warps each.
+MODEL_WARPS = 132 * 32
 
 
 @dataclass(frozen=True)
@@ -238,8 +255,9 @@ def edge_visits(
     passes of ``rows_pass`` rows (default: the whole range), and warp ``w``
     takes the pass's (row, tile) items ``w, w + 8, ...``, rows outer.  This
     models the shared-memory path of kernel A (every stage whose row fits,
-    u12's all) and kernel B; :func:`check_schedule` holds its copies of the
-    tile width and warp count against each library when it loads.
+    u12's all), and kernel B's at one slab (:func:`slab_visits`);
+    :func:`check_schedule` holds its copies of the tile width and warp count
+    against each library when it loads.
     """
     part = operand.partition
     row_ptr = operand.row_ptr.cpu().numpy().astype(np.int64)
@@ -263,8 +281,66 @@ def edge_visits(
             "max": max(light_max, heavy_max), "tiles": n_tiles}
 
 
+def slab_tiles(c: int, n: int) -> int:
+    """Tiles per column slab in which kernel B walks an ``(n, c)`` operand:
+    all of them (one slab) up to :data:`ONE_SLAB_TILES`; past that as many
+    as span :data:`SLAB_BYTES` of M, at least one, and few enough slabs for
+    the grid.  ``spmm_blocked_slab_tiles`` in ``csrc/spmm_blocked.cu``, with
+    aligned pointers."""
+    width = tile_width(c)
+    n_tiles = -(-c // width)
+    if n_tiles <= ONE_SLAB_TILES:
+        return n_tiles
+    s = max(SLAB_BYTES // (max(n, 1) * width * 4), 1, -(-n_tiles // MAX_SLABS))
+    return min(s, n_tiles)
+
+
+def slab_visits(operand: CompactOperand, cols: int) -> Dict[str, float]:
+    """Kernel B's schedule over a ``cols``-column operand, counted in edge
+    visits (edges walked serially x column tiles walked for).
+
+    The launch is :func:`slab_tiles` -wide slabs, each the heavy blocks
+    (8 (segment, tile) items, one a warp) and one CTA per light range, whose
+    warp ``w`` takes the slab's (row, tile) items ``w, w + 8, ...``, rows
+    outer.  ``max`` is the most visits any one warp makes in one CTA;
+    ``even`` is the launch's visits over :data:`MODEL_WARPS` warps; and
+    ``bound``, their sum, is Graham's bound on a greedy schedule of the
+    warps' work over the card's: the launch's length in one warp's visits.
+    At one slab, ``max`` is :func:`edge_visits`' (``rows_pass`` unset).
+    """
+    part = operand.partition
+    row_ptr = operand.row_ptr.cpu().numpy().astype(np.int64)
+    range_ptr = part.range_ptr.cpu().numpy().astype(np.int64)
+    light = part.heavy_slot.cpu().numpy() < 0
+    seg_len = (part.seg_end - part.seg_beg).cpu().numpy()
+    deg = np.where(light, np.diff(row_ptr), 0)
+    n_tiles = -(-cols // tile_width(cols))
+    slab = slab_tiles(cols, operand.n)
+    n_slabs = -(-n_tiles // slab)
+    rng = np.repeat(np.arange(part.n_ranges), np.diff(range_ptr))
+    local = np.arange(operand.n) - range_ptr[rng]
+    light_max = 0
+    for tiles in {slab, n_tiles - (n_slabs - 1) * slab}:  # a full slab, the last
+        per_warp = np.zeros(part.n_ranges * KERNEL_WARPS, dtype=np.int64)
+        for t in range(min(tiles, KERNEL_WARPS)):  # tiles t, t + 8, ... share a warp
+            warp = (local * tiles + t) % KERNEL_WARPS
+            per_warp += np.bincount(rng * KERNEL_WARPS + warp, weights=deg * ((tiles - t + 7) // 8),
+                                    minlength=per_warp.size).astype(np.int64)
+        light_max = max(light_max, int(per_warp.max(initial=0)))
+    heaviest = max(light_max, int(seg_len.max(initial=0)))
+    even = operand.num_directed * n_tiles / MODEL_WARPS
+    return {"slab_tiles": slab, "slabs": n_slabs, "tiles": n_tiles, "max": heaviest,
+            "even": even, "bound": even + heaviest}
+
+
 #: Operand widths at which :func:`check_schedule` compares the tile choice.
 _CHECKED_WIDTHS = range(1, 2049)
+#: Widths and row counts at which :func:`check_slabs` compares the slab
+#: choice: narrow, every tile count around the thresholds, the bag
+#: extends' widths, and the widest the kernel takes.
+_SLAB_WIDTHS = tuple(range(1, 2049, 7)) + tuple(range(128 * 6, 128 * 66 + 1, 64)) + (
+    49_152, 98_304, 327_680, 491_520, 565_248, 2**31 - 129)
+_SLAB_ROWS = (1, 2, 97, 3100, 8192, 24_576, 1 << 20, 1 << 24, 2**31 - 1)
 
 
 def check_schedule(lib: ctypes.CDLL) -> None:
@@ -283,6 +359,19 @@ def check_schedule(lib: ctypes.CDLL) -> None:
                                f"at C={c}, the host model {tile_width(c)}")
 
 
+def check_slabs(lib: ctypes.CDLL) -> None:
+    """Raise unless a built kernel B library cuts the columns into the slabs
+    that :func:`slab_tiles` (and so :func:`slab_visits`) assumes (its
+    exported ``spmm_blocked_slab_tiles``)."""
+    slabs = lib.spmm_blocked_slab_tiles
+    slabs.argtypes, slabs.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for c in _SLAB_WIDTHS:
+        for n in _SLAB_ROWS:
+            if slabs(c, _vector_width(c), n) != slab_tiles(c, n):
+                raise RuntimeError(f"the library walks slabs of {slabs(c, _vector_width(c), n)} "
+                                   f"tiles at C={c}, n={n}, the host model {slab_tiles(c, n)}")
+
+
 #: Largest value the kernels hold in a 32-bit ``int``.
 INT32_MAX = 2**31 - 1
 
@@ -294,19 +383,23 @@ def check_int32_counts(operand: CompactOperand, c: int) -> Dict[str, int]:
 
     A bag extend's state flattened to ``(n, n**(r-1) * B * C)`` is far wider
     than a tree stage: 49,152 columns at n = 8192, B = 1 and C = 6.  The
-    kernel's column index runs to ``c`` plus one tile (128 columns), each
-    heavy segment is one warp item per column tile, the grid is the heavy
-    blocks (8 items each) and the light ranges, and a light CTA walks its
-    rows times the tiles; row offsets are 64-bit already.
+    kernel's column index runs to ``c`` plus one tile (128 columns); per
+    slab (:func:`slab_tiles`), each heavy segment is one warp item per tile,
+    the grid's x is the heavy blocks (8 items each) and the light ranges,
+    and a light CTA walks its rows times the slab's tiles; the slabs are the
+    grid's y (at most :data:`MAX_SLABS` by the choice of the slab).  Row
+    offsets are 64-bit already.
     """
     part = operand.partition
-    n_tiles = -(-c // 128)  # tile_width is 128 above 64 columns, one tile below
-    heavy_items = part.n_segments * n_tiles
+    slab = slab_tiles(c, operand.n)
+    n_tiles = -(-c // tile_width(c))
+    heavy_items = part.n_segments * slab
     counts = {
         "column index (C + one tile)": c + 128,
-        "heavy items (segments x column tiles)": heavy_items + KERNEL_WARPS,
-        "grid (heavy blocks + light ranges)": -(-heavy_items // KERNEL_WARPS) + part.n_ranges,
-        "light-range items (rows x column tiles)": RANGE_ROWS * n_tiles,
+        "heavy items (segments x slab tiles)": heavy_items + KERNEL_WARPS,
+        "grid x (heavy blocks + light ranges)": -(-heavy_items // KERNEL_WARPS) + part.n_ranges,
+        "light-range items (rows x slab tiles)": RANGE_ROWS * slab,
+        "grid y (slabs)": -(-n_tiles // slab),
     }
     for what, value in counts.items():
         if value > INT32_MAX:
@@ -322,9 +415,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.spmm_blocked_launch
     if fn.argtypes is None:
         check_schedule(lib)
+        check_slabs(lib)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, p, i, p, i, p, p, i, p, p, i, p, p, p, p,
-                       ctypes.POINTER(ctypes.c_int)]
+                       ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     return lib
 
@@ -333,11 +427,13 @@ def spmm_blocked(operand: CompactOperand, m: torch.Tensor) -> torch.Tensor:
     """``B = A_G @ M`` for fp32 ``M`` of shape ``(n, C)``; returns ``(n, C)`` fp32.
 
     Each call that launches the CUDA kernel adds one to
-    ``spmm_blocked.launches`` and the number of device kernels it issued (1,
-    or 2 with heavy rows: the reduction) to ``spmm_blocked.device_launches``;
-    its scratch (one ``C``-wide row per heavy segment) is ``n_segments * C *
-    4`` bytes.  A width whose launch counts would pass the kernel's 32-bit
-    ints raises (:func:`check_int32_counts`).
+    ``spmm_blocked.launches``, the number of device kernels it issued (1,
+    or 2 with heavy rows: the reduction) to ``spmm_blocked.device_launches``,
+    and one to ``spmm_blocked.sliced_launches`` if it cut the columns into
+    more than one slab (:func:`slab_tiles`); its scratch (one ``C``-wide row
+    per heavy segment) is ``n_segments * C * 4`` bytes.  A width whose
+    launch counts would pass the kernel's 32-bit ints raises
+    (:func:`check_int32_counts`).
     """
     if m.dim() != 2 or m.shape[0] != operand.n:
         raise ValueError(f"expected M of shape ({operand.n}, C), got {tuple(m.shape)}")
@@ -356,7 +452,7 @@ def spmm_blocked(operand: CompactOperand, m: torch.Tensor) -> torch.Tensor:
     part = operand.partition
     out = torch.empty((n, c), dtype=torch.float32, device=m.device)
     partials = torch.empty((part.n_segments, c), dtype=torch.float32, device=m.device)
-    launched = ctypes.c_int(0)
+    launched, slabs = ctypes.c_int(0), ctypes.c_int(0)
     status = _library().spmm_blocked_launch(
         operand.row_ptr.data_ptr(),
         operand.src.data_ptr(),
@@ -376,12 +472,15 @@ def spmm_blocked(operand: CompactOperand, m: torch.Tensor) -> torch.Tensor:
         partials.data_ptr(),
         torch.cuda.current_stream(m.device).cuda_stream,
         ctypes.byref(launched),
+        ctypes.byref(slabs),
     )
     _build.check(status, "spmm_blocked")
     spmm_blocked.launches += 1
     spmm_blocked.device_launches += launched.value
+    spmm_blocked.sliced_launches += slabs.value > 1
     return out
 
 
 spmm_blocked.launches = 0
 spmm_blocked.device_launches = 0
+spmm_blocked.sliced_launches = 0

@@ -347,18 +347,50 @@ def _heavy_sums(op, m):
 
 
 def _mirror_spmm_blocked(op, m):
-    """``spmm_blocked.cu``: heavy segments, light rows, heavy reduction."""
+    """``spmm_blocked.cu``: per column slab (``blockIdx.y``), the heavy
+    blocks' (segment, tile) items into the partials and the light ranges'
+    (row, tile) items into the output, by the kernel's index arithmetic;
+    then each heavy row's partials summed in segment order.  Every light
+    (row, tile) and every (segment, tile) is written exactly once."""
     part = op.partition
     n, c = m.shape
-    out = torch.full((n, c), float("nan"))
-    row_ptr, slot = op.row_ptr.tolist(), part.heavy_slot.tolist()
+    width = tile_width(c)
+    n_tiles = -(-c // width)
+    slab = blocked_ops.slab_tiles(c, n)
+    warps = blocked_ops.KERNEL_WARPS
+    heavy_blocks = -(-part.n_segments * slab // warps)
     groups = _lane_groups(c)
-    rp = part.range_ptr.tolist()
-    for r in range(part.n_ranges):
-        for v in range(rp[r], rp[r + 1]):
-            if slot[v] < 0:
-                out[v] = _walk(m, op.src, row_ptr[v], row_ptr[v + 1], groups)
-    out[part.heavy_rows.long()] = _heavy_sums(op, m)
+    out = torch.full((n, c), float("nan"))
+    partials = torch.full((part.n_segments, c), float("nan"))
+    writes = torch.zeros((n + part.n_segments, n_tiles), dtype=torch.int64)
+    row_ptr, slot = op.row_ptr.tolist(), part.heavy_slot.tolist()
+    beg, end, rp = part.seg_beg.tolist(), part.seg_end.tolist(), part.range_ptr.tolist()
+
+    def walk(lo, hi, t, row):
+        cols = slice(t * width, min(c, (t + 1) * width))
+        row[cols] = _walk(m[:, cols], op.src, lo, hi, groups)
+
+    for y in range(-(-n_tiles // slab)):
+        t0 = y * slab
+        tiles = min(slab, n_tiles - t0)
+        for item in range(min(heavy_blocks * warps, part.n_segments * tiles)):
+            seg = item // tiles
+            walk(beg[seg], end[seg], t0 + item - seg * tiles, partials[seg])
+            writes[n + seg, t0 + item - seg * tiles] += 1
+        for r in range(part.n_ranges):
+            for item in range((rp[r + 1] - rp[r]) * tiles):
+                rr = item // tiles
+                v = rp[r] + rr
+                if slot[v] < 0:
+                    walk(row_ptr[v], row_ptr[v + 1], t0 + item - rr * tiles, out[v])
+                    writes[v, t0 + item - rr * tiles] += 1
+    seg_ptr = part.seg_ptr.tolist()
+    for h, v in enumerate(part.heavy_rows.tolist()):
+        out[v] = 0.0
+        for s in range(seg_ptr[h], seg_ptr[h + 1]):
+            out[v] += partials[s]
+    light = torch.tensor(slot + [-1] * part.n_segments) < 0
+    assert torch.all(writes[light] == 1) and torch.all(writes[~light] == 0)
     return out
 
 
@@ -478,6 +510,28 @@ def test_spmm_blocked_schedule_mirror(cols, monkeypatch):
     assert float(got[101:].abs().max()) == 0.0  # rows with no edges write zeros
 
 
+@pytest.mark.parametrize("cols,one_slab_tiles,slab_bytes", [
+    (130, 1, 0), (900, 1, 130 * 512 * 3), (1030, 8, 0), (2050, 8, 130 * 512 * 5)])
+def test_spmm_blocked_slab_schedule_mirror(cols, one_slab_tiles, slab_bytes, monkeypatch):
+    """Kernel B cut into column slabs (narrow ones forced here): two slabs
+    of one tile, a last slab of fewer tiles (900 columns: 8 tiles in slabs
+    of 3), 1030 columns (9 tiles, past the one-slab limit) in slabs of
+    one, and 17 tiles in slabs of 5 set by the slab's bytes; each equals
+    the plain version and, bit for bit, the schedule in one slab."""
+    g = _hub_graph()
+    small_partition(monkeypatch)
+    op = prepare_operand(g, "cpu")
+    m = np.random.default_rng(cols).standard_normal((g.n, cols)).astype(np.float32)
+    m = torch.from_numpy(m)
+    whole = _mirror_spmm_blocked(op, m)
+    monkeypatch.setattr(blocked_ops, "ONE_SLAB_TILES", one_slab_tiles)
+    monkeypatch.setattr(blocked_ops, "SLAB_BYTES", slab_bytes)
+    assert blocked_ops.slab_tiles(cols, g.n) < -(-cols // 128)
+    got = _mirror_spmm_blocked(op, m)
+    assert torch.equal(got, whole)
+    _close(got, spmm_ref(op.src, op.dst, g.n, m))
+
+
 @pytest.mark.parametrize(
     "k,m,m_a,bsz,rows_pass",
     [(5, 2, 1, 2, None), (7, 4, 1, 1, None), (7, 7, 3, 3, None), (6, 4, 2, 2, 3)],
@@ -584,14 +638,26 @@ def test_spmm_blocked_refuses_counts_past_int32():
         blocked_ops.check_int32_counts(lone, 2**31 - 128)
     g = rmat_graph(600, 4000, seed=3)
     op = prepare_operand(g, "cpu")
-    many = torch.zeros(2**20, dtype=torch.int32)
-    wide = dataclasses.replace(op, partition=dataclasses.replace(op.partition, seg_beg=many,
-                                                                 seg_end=many))
-    blocked_ops.check_int32_counts(wide, 2047 * 128)
+
+    def segments(count):  # a partition of `count` heavy segments, no memory behind them
+        many = torch.zeros(1, dtype=torch.int32).expand(count)
+        return dataclasses.replace(op, partition=dataclasses.replace(op.partition, seg_beg=many,
+                                                                     seg_end=many))
+
+    # heavy items are counted per slab: 2**20 segments x 2048 tiles would
+    # wrap in one slab, but at n = 600 the slab is 13 tiles (4 MiB of M)
+    assert blocked_ops.slab_tiles(2048 * 128, 600) == 13
+    assert blocked_ops.check_int32_counts(segments(2**20), 2048 * 128)[
+        "heavy items (segments x slab tiles)"] == 2**20 * 13 + 8
+    # 2**28 segments: 7 tiles fit in one slab, the eighth wraps
+    blocked_ops.check_int32_counts(segments(2**28), 7 * 128)
     with pytest.raises(ValueError, match="heavy items"):
-        blocked_ops.check_int32_counts(wide, 2048 * 128)
+        blocked_ops.check_int32_counts(segments(2**28), 8 * 128)
+    with pytest.raises(ValueError, match="heavy items"):
+        blocked_ops.check_int32_counts(segments(2**28), 2048 * 128)
     counts = blocked_ops.check_int32_counts(op, 49_152)
-    assert counts["light-range items (rows x column tiles)"] == blocked_ops.RANGE_ROWS * 384
+    assert counts["light-range items (rows x slab tiles)"] == blocked_ops.RANGE_ROWS * 13
+    assert counts["grid y (slabs)"] == 384 // 13 + 1
 
 
 def test_spmm_ema_refuses_counts_past_int32():

@@ -23,8 +23,11 @@ from repro_torch.kernels.spmm_blocked.ops import (
     SEGMENT_EDGES,
     build_partition,
     check_schedule,
+    check_slabs,
     edge_visits,
     prepare_operand,
+    slab_tiles,
+    slab_visits,
     tile_width,
 )
 from repro_torch.kernels.spmm_ema.ops import kernel_geometry
@@ -214,3 +217,71 @@ def test_edge_visits_counts_the_round_robin_items(monkeypatch):
     v = edge_visits(op, 300)  # 3 tiles of 128 columns
     # row 0 -> warps 0, 1, 2 (5 each); row 2 -> warps 6, 7, 0; row 3 -> 1, 2, 3
     assert v == {"light_warp": 7, "heavy_warp": 0, "max": 7, "tiles": 3}
+
+
+# ---------------------------------------------------------------------------
+# kernel B's column slabs
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def motif_operand():
+    """The motif benchmark's graph (``portbench/configs/rmat8k-motifs.json``:
+    R-MAT, n = 8192, 131,072 sampled edges, seed 2), built on the CPU."""
+    from portbench.reference.rmat import rmat_edges
+
+    src, dst = rmat_edges(8192, 131_072, 2)
+    op = prepare_operand(Graph(n=8192, src=src.numpy(), dst=dst.numpy()), "cpu")
+    assert (op.num_directed, op.partition.n_heavy, op.partition.n_ranges) == (203_750, 14, 572)
+    return op
+
+
+@pytest.mark.parametrize("cols", [491_520, 327_680, 565_248])
+def test_slab_visits_balance_bag_widths(motif_operand, cols):
+    """At the bag extends' widths (the paw's and 4-cycle's at a chunk of 10,
+    the 4-cycle's last, the service's triangle) the slabs spread the launch:
+    its bound is within 1.5x of the even share of the card's warps, where
+    one slab's heaviest warp alone is 8.44x it."""
+    v = slab_visits(motif_operand, cols)
+    assert v["slabs"] == v["tiles"] > 1  # slabs of one tile at n = 8192
+    assert v["even"] <= v["bound"] <= 1.5 * v["even"]
+    assert v["max"] <= RANGE_EDGES
+    whole = edge_visits(motif_operand, cols)["max"]
+    assert round(whole / v["even"], 2) == 8.44
+
+
+@pytest.mark.parametrize("cols", [12, 40, 300])
+def test_slab_visits_narrow_widths_keep_one_slab(motif_operand, cols):
+    """Narrow products (the leaf stage's, the paw's last extend, three
+    tiles) are one slab: the schedule of every tile in turn, whose
+    heaviest warp ``edge_visits`` counts."""
+    v = slab_visits(motif_operand, cols)
+    assert (v["slabs"], v["slab_tiles"]) == (1, v["tiles"])
+    assert v["max"] == edge_visits(motif_operand, cols)["max"]
+
+
+@pytest.mark.parametrize("c,n,slab", [(1024, 8192, 8), (1025, 8192, 1), (491_520, 8192, 1),
+                                      (491_520, 1024, 8), (1025, 97, 9), (300, 97, 3),
+                                      (2**31 - 129, 1 << 20, 257)])
+def test_slab_tiles(c, n, slab):
+    """Up to 8 tiles one slab; past that, slabs span 4 MiB of M (one tile
+    at n = 8192, 8 at n = 1024), at least one tile, and at most 65,535
+    slabs (the widest product on 2^20 rows needs 257-tile slabs)."""
+    assert slab_tiles(c, n) == slab
+
+
+class _FakeSlabLibrary:
+    """Stands in for kernel B's library's slab export."""
+
+    def __init__(self, slabs):
+        self.spmm_blocked_slab_tiles = lambda c, vec, n: slabs(c, n)
+
+
+def test_check_slabs_holds_the_host_model_against_the_library():
+    """The host's copy of the slab choice (which ``slab_visits`` and the
+    int32 counts rest on) must match kernel B's library, or loading it
+    fails."""
+    check_slabs(_FakeSlabLibrary(slab_tiles))
+    with pytest.raises(RuntimeError, match="C=491520, n=8192"):
+        check_slabs(_FakeSlabLibrary(
+            lambda c, n: 8 if (c, n) == (491_520, 8192) else slab_tiles(c, n)))

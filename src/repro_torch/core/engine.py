@@ -33,7 +33,9 @@ totals.  Its memory model is per shard.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -58,11 +60,28 @@ __all__ = [
     "DtypePolicy",
     "EstimateResult",
     "CountingEngine",
+    "RangeShift",
+    "RANGE_MARGIN_LOG2",
     "engine_cache_key",
+    "rooted_homomorphisms",
+    "homomorphism_bounds",
+    "choose_range_shift",
     "resolve_device",
 ]
 
 logger = logging.getLogger("repro_torch.engine")
+
+#: log2 of what every count of a shifted tree walk is held under: each
+#: stage's aggregate and output entries, the root's sum over vertices, and
+#: that sum times the normaliser.  fp32's largest finite value is just under
+#: 2^128; the 2^18 between is room for what rounding adds to an exact count
+#: (at most a relative 2^-8 per bf16-stored state over a template's stages,
+#: far less in fp32) many times over.
+RANGE_MARGIN_LOG2 = 110
+#: log2 of fp32's (and bf16's) smallest normal magnitude: a count of one in
+#: a ``k``-vertex state, ``2^(-s k)``, and the smallest estimate may not
+#: fall below it, or the shift would cost precision.
+RANGE_FLOOR_LOG2 = -126
 
 
 @dataclass(frozen=True)
@@ -103,6 +122,107 @@ class EstimateResult:
     std: float
     per_iteration: np.ndarray
     iterations: int
+
+
+@dataclass(frozen=True)
+class RangeShift:
+    """The tree walk's exact range shift: the leaf is scaled by
+    ``2^-shift``, so an ``m``-vertex state holds its counts times
+    ``2^(-shift m)`` and each total comes back times ``2^(-shift k)``.
+
+    ``bound_log2`` is log2 of the largest bound before the shift and
+    ``shifted_log2`` the largest after it (each bound less ``shift`` times
+    its vertices), both ``None`` where no bound was computed; ``why`` says
+    how the shift was chosen."""
+
+    shift: int
+    bound_log2: Optional[float]
+    shifted_log2: Optional[float]
+    margin_log2: int
+    why: str
+
+    def describe(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+def rooted_homomorphisms(
+    plan: TemplatePlan, graph: Graph, device
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """``(hom, agg)``, canon -> ``(n,)`` float64, for the rooted
+    sub-templates of ``plan``'s tree plans: ``hom[s][v]`` counts the
+    homomorphisms of ``s`` that send its root to ``v`` (the leaf's is one,
+    a stage's ``H_active * agg``), and ``agg[s]`` is a stage's passive
+    aggregate ``A_G @ H_passive``, one sparse product each."""
+    n = graph.n
+    src = torch.as_tensor(graph.src, device=device)
+    dst = torch.as_tensor(graph.dst, device=device)
+    hom: Dict[str, torch.Tensor] = {}
+    agg: Dict[str, torch.Tensor] = {}
+    for p_idx, cplan in enumerate(plan.counting_plans):
+        canons = plan.canons[p_idx]
+        for i, sub in enumerate(cplan.partition.subs):
+            if canons[i] in hom:
+                continue
+            if sub.is_leaf:
+                hom[canons[i]] = torch.ones(n, dtype=torch.float64, device=device)
+                continue
+            passive = hom[canons[sub.passive]]
+            agg[canons[i]] = torch.zeros_like(passive).index_add_(0, dst, passive[src])
+            hom[canons[i]] = hom[canons[sub.active]] * agg[canons[i]]
+    return hom, agg
+
+
+def homomorphism_bounds(
+    plan: TemplatePlan, graph: Graph, norms: Sequence[float], device
+) -> List[Tuple[float, int]]:
+    """``(log2 bound, vertices)`` of every count a tree plan's walk holds.
+
+    A colorful entry of a sub-template's state, and each partial sum over
+    splits that makes it, counts a subset of the homomorphisms
+    :func:`rooted_homomorphisms` counts, so ``max_v hom`` bounds a stage's
+    outputs and ``max_v agg`` its aggregate (of the passive's vertices).
+    The root adds its sum over vertices and that sum times each template's
+    normaliser ``norms[t]``."""
+    hom, agg = rooted_homomorphisms(plan, graph, device)
+    values: List[torch.Tensor] = []
+    sizes: List[int] = []
+    for p_idx, cplan in enumerate(plan.counting_plans):
+        subs, canons = cplan.partition.subs, plan.canons[p_idx]
+        for i, sub in enumerate(subs):
+            if not sub.is_leaf:
+                values += [agg[canons[i]].max(), hom[canons[i]].max()]
+                sizes += [subs[sub.passive].size, sub.size]
+        total = hom[canons[cplan.partition.root_index]].sum()
+        values += [total, total * norms[p_idx]]
+        sizes += [cplan.k, cplan.k]
+    logs = torch.stack(values).log2().cpu().tolist()
+    return list(zip(logs, sizes))
+
+
+def choose_range_shift(
+    bounds: Sequence[Tuple[float, int]], k: int, norms: Sequence[float], margin_log2: int
+) -> RangeShift:
+    """The smallest ``s >= 0`` with every ``log2 bound - s * vertices``
+    under ``margin_log2``.  Raises ``ValueError`` where that ``s`` would
+    put a count of one in a ``k``-vertex state, or the smallest estimate,
+    below fp32's smallest normal magnitude."""
+    finite = [(b, m) for b, m in bounds if b != -math.inf]
+    if not finite:
+        return RangeShift(0, None, None, margin_log2, "no count to bound")
+    shift = max(0, max(math.ceil((b - margin_log2) / m) for b, m in finite))
+    top = max(b for b, _ in finite)
+    shifted = max(b - shift * m for b, m in finite)
+    floor = -shift * k + min(0.0, math.log2(min(norms)))
+    if shift and floor < RANGE_FLOOR_LOG2:
+        raise ValueError(
+            f"the tree walk's largest count is bounded by 2^{top:.1f}: holding every count "
+            f"under 2^{margin_log2} takes a shift of {shift} per template vertex, and a "
+            f"{k}-vertex count of one would then read 2^{floor:.1f}, below fp32's smallest "
+            f"normal 2^{RANGE_FLOOR_LOG2}; the graph is too large for these templates in fp32"
+        )
+    why = ("bounds under the margin" if shift == 0
+           else f"largest bound 2^{top:.1f} over the margin 2^{margin_log2}")
+    return RangeShift(shift, top, shifted, margin_log2, why)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -309,11 +429,8 @@ class CountingEngine:
         )
 
         norm = colorful_probability(self.k)
-        self._norm_factors = torch.tensor(
-            [1.0 / (norm * plan.automorphisms) for plan in self.plans],
-            dtype=torch.float32,
-            device=self.device,
-        )
+        self._norms = [1.0 / (norm * plan.automorphisms) for plan in self.plans]
+        self._norm_factors = torch.tensor(self._norms, dtype=torch.float32, device=self.device)
 
         # ``trace_count`` counts chunk-function builds (the reference counts
         # jit traces); ``passive_aggregations`` counts aggregation launches.
@@ -326,6 +443,9 @@ class CountingEngine:
             column_batch=column_batch, ema_mode=ema_mode, gather_dtype=gather_dtype,
             balance_degrees=balance_degrees, mesh_comm=mesh_comm,
         )
+        self.range = self._choose_range()
+        self.range_shift = self.range.shift
+        self.counters["range_shift"] = self.range_shift
 
         self._chunk_explicit = bool(chunk_size)
         self._graph_signature: Optional[str] = None
@@ -341,6 +461,27 @@ class CountingEngine:
             self.backend, source, reason, self.device, graph.n,
             graph.num_directed, self.k, self.column_batch, self.chunk_size,
         )
+
+    def _choose_range(self) -> RangeShift:
+        """The range shift for this engine's graph and templates: 0 on a
+        backend that builds its own leaf (``mesh``) and for any bag plan;
+        else from :func:`homomorphism_bounds`."""
+        if not self.backend_impl.scales_leaf:
+            return RangeShift(0, None, None, RANGE_MARGIN_LOG2,
+                              f"the {self.backend} backend builds its own leaf")
+        if any(plan.partition is None for plan in self.plans):
+            return RangeShift(0, None, None, RANGE_MARGIN_LOG2, "a bag plan")
+        with obs.span("repro_torch.engine.range_bound"):
+            bounds = homomorphism_bounds(self.plan_ir, self.graph, self._norms, self.device)
+        return choose_range_shift(bounds, self.k, self._norms, RANGE_MARGIN_LOG2)
+
+    def _unshift(self, values: torch.Tensor) -> torch.Tensor:
+        """fp32 counts of a shifted walk -> float64 counts: times
+        ``2^(shift k)``, exact.  At shift 0, the values as they are."""
+        if not self.range_shift:
+            return values
+        with obs.span("repro_torch.engine.range", self.device):
+            return values.to(torch.float64) * 2.0 ** (self.range_shift * self.k)
 
     # ------------------------------------------------------------------
     # Plan-derived views
@@ -445,6 +586,7 @@ class CountingEngine:
             "comm": (self.backend_impl.describe_comm()
                      if hasattr(self.backend_impl, "describe_comm") else None),
             "plan": self.plan_ir.describe(),
+            "range": self.range.describe(),
             "memory": {
                 "budget_bytes": self.memory_budget_bytes,
                 "fusion_slack": self.cost.fusion_slack,
@@ -471,9 +613,11 @@ class CountingEngine:
         return colors.to(device=self.device, dtype=torch.long)
 
     def raw_counts(self, colors) -> torch.Tensor:
-        """(n,) coloring -> (T,) raw colorful totals (fp32, on the device)."""
+        """(n,) coloring -> (T,) raw colorful totals (float64, on the device;
+        the fp32 walk's, times ``2^(shift k)``)."""
         colors = self._colors_tensor(colors)
-        return self.backend_impl.counts_for_colors(colors[None, :])[0]
+        raw = self.backend_impl.counts_for_colors(colors[None, :])[0]
+        return self._unshift(raw).to(torch.float64)
 
     def _get_chunk_fn(self):
         if self._chunk_fn is None:

@@ -214,6 +214,11 @@ class EngineBackend:
     #: adds ``"collective"`` for its collective dispatch.
     fault_sites: Tuple[str, ...] = ("launch",)
 
+    #: Whether the walk scales its leaf by the engine's range shift
+    #: (``CountingEngine.range_shift``); a backend that does not keeps
+    #: shift 0.
+    scales_leaf: bool = False
+
     def __init__(self, engine):
         self.engine = engine
 
@@ -234,7 +239,8 @@ class EngineBackend:
         return [self.aggregate_ema(m_p, m_a, tables) for m_a, tables in stage_inputs]
 
     def counts_for_colors(self, colors: torch.Tensor) -> torch.Tensor:
-        """``(B, n)`` colorings -> ``(B, T)`` un-normalised colorful totals."""
+        """``(B, n)`` colorings -> ``(B, T)`` un-normalised colorful totals
+        (fp32, times ``2^(-shift k)`` on a backend that :attr:`scales_leaf`)."""
         raise NotImplementedError
 
     def counts_for_keys_chunk(self, keys: torch.Tensor) -> torch.Tensor:
@@ -254,15 +260,17 @@ class EngineBackend:
 
     def make_chunk_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """The per-chunk function: ``(B, n)`` colorings -> ``(B, T)``
-        normalised estimates (fp32, on the engine's device).  Building it
-        bumps the engine's ``trace_count``, so a warm engine shows that it
-        built nothing again."""
+        normalised estimates on the engine's device: the fp32 totals times
+        the fp32 normaliser, as they are at range shift 0 and in float64
+        times ``2^(shift k)`` past it (``CountingEngine._unshift``).
+        Building it bumps the engine's ``trace_count``, so a warm engine
+        shows that it built nothing again."""
         engine = self.engine
         engine.trace_count += 1
         norm = engine._norm_factors
 
         def chunk_fn(colors: torch.Tensor) -> torch.Tensor:
-            return self.counts_for_colors(colors) * norm[None, :]
+            return engine._unshift(self.counts_for_colors(colors) * norm[None, :])
 
         return chunk_fn
 

@@ -65,6 +65,8 @@ class LocalBackend(EngineBackend):
     #: need the tables bucketed by batch).
     streams_columns = True
 
+    scales_leaf = True
+
     def __init__(self, engine, shared: "LocalBackend" = None):
         super().__init__(engine)
         # A MixedBackend's sub-implementations pass ``shared=`` to alias the
@@ -115,17 +117,24 @@ class LocalBackend(EngineBackend):
         return self.aggregate_ema_grouped(m_p, stage_inputs)
 
     def counts_for_colors(self, colors: torch.Tensor) -> torch.Tensor:
-        """(B, n) colorings -> (B, T) un-normalised colorful totals.
+        """(B, n) colorings -> (B, T) un-normalised colorful totals, fp32,
+        times ``2^(-shift k)`` (the engine's range shift).
 
         The walk *is* the plan: sub-template states are memoized by
         canonical form, freed at the plan's liveness-scheduled last reads,
         and stages reading the same passive canonical form execute as one
         plan exec group over one column-batch sweep.  Bag plans walk their
-        bag programs through the same slots and liveness schedule.
+        bag programs through the same slots and liveness schedule.  The
+        leaf holds ``2^-shift`` where the one-hot holds one: every
+        ``m``-vertex state is then its counts times ``2^(-shift m)``,
+        exactly.
         """
         eng = self.engine
         with obs.span("repro_torch.engine.leaf"):
             leaf = torch.nn.functional.one_hot(colors.t().long(), eng.k).to(eng.policy.store_dtype)
+        if eng.range_shift:
+            with obs.span("repro_torch.engine.range", eng.device):
+                leaf.mul_(2.0 ** -eng.range_shift)
         with obs.span("repro_torch.engine.walk"):
             return self._walk(leaf)
 

@@ -422,6 +422,36 @@ def test_spmm_blocked_refuses_widths_past_its_int32_counts(card):
     assert blocked_ops.check_int32_counts(op, 49_152)["column index (C + one tile)"] == 49_280
 
 
+def test_u18_totals_past_fp32_range_are_finite_on_card(card):
+    """u18 on R-MAT with 2^13 vertices (8 sampled edges per vertex, the
+    ``[wide]`` phase's graph one size above its gate): the engine's bound
+    on the totals passes fp32's range, so the walk takes a range shift, and
+    the ``blocked`` engine's estimates are finite and within the limit of
+    the benchmark's ``rmat17-u18-wide`` cell of the plain float64
+    reference."""
+    import json
+    from pathlib import Path
+
+    from portbench.reference import colorcoding
+
+    limit = json.loads((Path(__file__).resolve().parents[1] / "portbench" / "workloads"
+                        / "rmat17-u18-wide.json").read_text())["max_rel_gap_limit"]
+    g = rmat_graph(1 << 13, 8 << 13, seed=1)
+    t = get_template("u18")
+    eng = CountingEngine(g, [t], backend="blocked", chunk_size=1, device=card)
+    rng = eng.describe()["range"]
+    assert eng.range_shift >= 1 and rng["bound_log2"] > 128 > rng["shifted_log2"]
+    keys = split(prng_key(5, card), 2)
+    est = eng.count_keys(keys)
+    assert np.all(np.isfinite(est)) and np.all(est > 0)
+    src, dst = (torch.as_tensor(a, dtype=torch.int64, device=card) for a in (g.src, g.dst))
+    adj = colorcoding.Adjacency(src, dst, g.n, dense=False)
+    for j in range(keys.shape[0]):
+        colors = randint(keys[j], (g.n,), 0, t.k)
+        want = colorcoding.estimate(adj, colors, [tuple(e) for e in t.edges])
+        assert abs(est[j, 0] - want) <= limit * want, (j, est[j, 0], want)
+
+
 def test_bag_stages_on_card_match_edges_and_cpu(card):
     g = rmat_graph(200, 900, seed=5)
     keys = split(prng_key(1), 3)

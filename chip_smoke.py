@@ -55,13 +55,24 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    graphlets and four 4-vertex ones (two trees, the tailed triangle and the
    4-cycle), count the colorings of ``split(prng_key(0), 4)`` through
    ``count_keys``, with the launch counters reset just before and read just
-   after (both kernels must launch); totals per coloring within
-   ``TOTALS_RTOL`` of the ``edges`` engine on the same keys.  Records
+   after (both kernels must launch, and the bag eMA once per bag update
+   that the engine counts as ``bag_fused``, with none on its loop); totals
+   per coloring within ``TOTALS_RTOL`` of an ``edges`` engine on the same
+   keys whose bag updates all take the executor's loop (no bag eMA
+   launch).  Records
    seconds per coloring, peak memory against the cost model's prediction,
    a ``torch.profiler`` split with the device's idle share, and, at every
    bag width the engines launch the blocked SpMM kernel at (and at the
    widths of one coloring), the kernel against its plain version with its
-   time, bound and ``torch.sparse.mm``'s time.
+   time, bound and ``torch.sparse.mm``'s time.  Then the bag eMA
+   (``[bag_ema]``): g4-2, g4-3 and g3-1 each in a ``blocked`` engine at a
+   chunk of 10 colorings (the motif benchmark's), whose every bag extend
+   and join hands its own operands to the kernel and to the executor's
+   loop (``LocalBackend._bag_extend_loop`` / ``_bag_join_loop``): every
+   output within ``BAG_EMA_RTOL`` of the loop's, a second launch bitwise
+   equal, and the kernel's and the loop's times beside the update's bound
+   (each output written once, each operand row read once where its masks
+   are nonzero, the adjacency once).
 5c. The counting service: one ``CountingService`` serves the same graph to
    two tenants, the 3-vertex graphlets with an (epsilon, delta) target and
    the four 4-vertex templates at 8 iterations, then repeats the second on
@@ -187,7 +198,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``torch.sort``; 1,024 seeds, fanouts 15 and 10; ms per sample and per
    ``node_flow_to_batch``), then a GCN and a GAT step on the sampled
    flow; finally ``python -m repro_torch.launch.train --arch gcn-cora
-   --steps 20`` with no ``--device``.  The three kernel wrappers' counters
+   --steps 20`` with no ``--device``.  The four kernel wrappers' counters
    must not move during the phase.
 8h. The two-tower recommender, trained and served (``[recsys]``): no
    kernel of the port runs here, as no Pallas kernel runs on the
@@ -210,7 +221,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    ``serve_p99`` (b=512, vocab 0.25: p50/p99 per request), ``serve_bulk``
    (b=262,144 in one call) and ``retrieval_cand`` (the 1 M-row corpus
    built in chunks, then p50/p99 per query of ``retrieval_scores`` and
-   ``retrieval_topk``), each beside its bound.  The three kernel wrappers'
+   ``retrieval_topk``), each beside its bound.  The four kernel wrappers'
    counters must not move during the phase.
 8i. The launch tooling (``[launch]``): no kernel of the port runs here,
    as none runs on the reference's dry-run cells (prefill and decode take
@@ -233,7 +244,7 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    logits and caches bitwise equal to ``prefill``'s.  The ``vectorized``
    eMA mode against ``loop`` through ``make_distributed_count_fn`` on u12
    at R-MAT 2^17 (the widest stage's gathered operands 14.5 GB), within
-   1e-5.  The three kernel wrappers' counters must not move.
+   1e-5.  The four kernel wrappers' counters must not move.
 9. Kernel A's wide path at full width (``[wide]``), once the LM weights
    and every earlier engine are freed: u18 on R-MAT with 2^17 vertices and
    u20 on 2^15 (8 sampled edges per vertex, as the main cell), the largest
@@ -357,6 +368,14 @@ TABLE_III_COUNTS = {"u5-1": 7.065e08, "u5-2": 1.535e09, "u6": 5.603e10, "u7": 4.
 #: with ``index_add_``, whose CUDA atomics add in no fixed order, and the
 #: kernels contract multiply-adds into FMAs.
 KERNEL_RTOL = 1e-4
+#: The bag eMA vs the executor's loop on the same operands: every output.
+#: Both sum the terms in table order from zero; the loop's ``addcmul_`` need
+#: not contract into an FMA as the kernel's does.
+BAG_EMA_RTOL = 1e-6
+#: Templates and chunk of the bag eMA check (the motif benchmark's chunk),
+#: and the budget their engines are built at (the chunk is given).
+BAG_EMA_CASES = (("g4-2", 10), ("g4-3", 10), ("g3-1", 10))
+BAG_EMA_BUDGET = 72 * 2**30
 #: Engine totals, ``blocked`` vs the plain ``edges`` path (same reasons).
 TOTALS_RTOL = 1e-4
 #: Most edge visits (edges x passive tiles) any warp may make on a stage of
@@ -982,12 +1001,11 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
-    spmm_ema.launches = spmm_ema.device_launches = 0
-    spmm_blocked.launches = spmm_blocked.device_launches = 0
+    reset_counting_launches()
     t0 = time.perf_counter()
     est = engine.count_keys(keys)  # returns on the host: synchronised
     run_s = time.perf_counter() - t0
-    launches = {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+    launches = counting_launches()
     device_launches = {"spmm_ema": spmm_ema.device_launches,
                        "spmm_blocked": spmm_blocked.device_launches}
 
@@ -1073,17 +1091,33 @@ def exactness(device) -> None:
 
 def reset_counting_launches() -> None:
     from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
-    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+    from repro_torch.kernels.spmm_ema.ops import bag_ema, spmm_ema
 
-    spmm_ema.launches = spmm_blocked.launches = 0
+    spmm_ema.launches = spmm_blocked.launches = bag_ema.launches = 0
     spmm_ema.device_launches = spmm_blocked.device_launches = 0
 
 
 def counting_launches() -> dict:
     from repro_torch.kernels.spmm_blocked.ops import spmm_blocked
-    from repro_torch.kernels.spmm_ema.ops import spmm_ema
+    from repro_torch.kernels.spmm_ema.ops import bag_ema, spmm_ema
 
-    return {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches}
+    return {"spmm_ema": spmm_ema.launches, "spmm_blocked": spmm_blocked.launches,
+            "bag_ema": bag_ema.launches}
+
+
+@contextlib.contextmanager
+def bag_updates_on_the_loop():
+    """Every bag update inside the block takes the executor's per-term loop
+    (the bag eMA's refusal gives a reason), so an engine run there launches
+    no bag eMA: a plain side independent of the kernel."""
+    from repro_torch.kernels.spmm_ema import ops
+
+    refusal = ops.bag_ema_refusal
+    ops.bag_ema_refusal = lambda *args, **kw: "held to the loop"
+    try:
+        yield
+    finally:
+        ops.bag_ema_refusal = refusal
 
 
 # ---------------------------------------------------------------------------
@@ -1126,6 +1160,8 @@ def bag_widths(engine, bsz) -> list:
 
 def motif_kernel_kind(name: str) -> str:
     low = name.lower()
+    if "bag_ema" in low:
+        return "bag eMA (bag_ema)"
     if "spmm_blocked" in low:
         return "kernel B (spmm_blocked)"
     if "spmm_ema" in low or "heavy_segments" in low:
@@ -1154,7 +1190,7 @@ def motif_path(graph, device, budget) -> dict:
 
     keys = split(prng_key(0, device), MOTIF_KEYS)
     records = []
-    launches_total = {"spmm_ema": 0, "spmm_blocked": 0}
+    launches_total = {"spmm_ema": 0, "spmm_blocked": 0, "bag_ema": 0}
     device_launches_total = {"spmm_ema": 0, "spmm_blocked": 0}
     for set_name, tnames in MOTIF_SETS:
         templates = [graphlet(t) for t in tnames]
@@ -1170,11 +1206,13 @@ def motif_path(graph, device, budget) -> dict:
         first_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        bag_before = dict(engine.counters)
         reset_counting_launches()
         t0 = time.perf_counter()
         est = engine.count_keys(keys)  # returns on the host: synchronised
         run_s = time.perf_counter() - t0
         launches = counting_launches()
+        bag_ops = {k: engine.counters[k] - bag_before[k] for k in ("bag_fused", "bag_loop")}
         device_launches = {"spmm_ema": spmm_ema.device_launches,
                            "spmm_blocked": spmm_blocked.device_launches}
         peak = torch.cuda.max_memory_allocated()
@@ -1182,14 +1220,23 @@ def motif_path(graph, device, budget) -> dict:
         if launches["spmm_blocked"] != len(widths) * n_chunks or launches["spmm_ema"] <= 0:
             raise AssertionError(f"{set_name}: launches {launches}, expected "
                                  f"{len(widths) * n_chunks} of spmm_blocked and some spmm_ema")
+        # every fp32 bag update on the card is one bag eMA launch
+        if launches["bag_ema"] != bag_ops["bag_fused"] or bag_ops["bag_loop"]:
+            raise AssertionError(f"{set_name}: {launches['bag_ema']} bag eMA launches for "
+                                 f"bag updates {bag_ops}")
         for name in launches:
             launches_total[name] += launches[name]
+        for name in device_launches:
             device_launches_total[name] += device_launches[name]
         profile = device_profile(lambda: engine.count_keys(keys), motif_kernel_kind)
         plain = CountingEngine(graph, templates, backend="edges", chunk_size=1, device=device)
+        before = counting_launches()["bag_ema"]
         t0 = time.perf_counter()
-        est_plain = plain.count_keys(keys)
+        with bag_updates_on_the_loop():
+            est_plain = plain.count_keys(keys)
         plain_s = time.perf_counter() - t0
+        if counting_launches()["bag_ema"] != before or plain.counters["bag_fused"]:
+            raise AssertionError(f"{set_name}: the plain engine launched the bag eMA")
         if not (np.all(np.isfinite(est)) and np.all(est >= 0)):
             raise AssertionError(f"{set_name}: estimates not finite and >= 0: {est.tolist()}")
         if not np.allclose(est, est_plain, rtol=TOTALS_RTOL, atol=0.0):
@@ -1206,6 +1253,9 @@ def motif_path(graph, device, budget) -> dict:
             "bag_widths": widths,
             "launches": launches,
             "device_launches": device_launches,
+            "bag_ops": bag_ops,
+            "plain_bag_ops": {"fused": plain.counters["bag_fused"],
+                              "loop": plain.counters["bag_loop"]},
             "max_memory_allocated": peak,
             "predicted_peak_bytes": bsz * engine.bytes_per_coloring(),
             "dense_adjacency_bytes": graph.n * graph.n * 4,
@@ -1220,6 +1270,142 @@ def motif_path(graph, device, budget) -> dict:
         torch.cuda.empty_cache()
     return {"engines": records, "launches": launches_total,
             "device_launches": device_launches_total}
+
+
+def viewed_bytes(t) -> int:
+    """Bytes of the distinct elements a view reads (broadcast axes once)."""
+    count = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            count *= size
+    return count * t.element_size()
+
+
+def bag_update_bytes(a, p, mask_axes, adj, n_out) -> tuple:
+    """The bag eMA's compulsory traffic on these operands, and the vertex
+    tuples whose masks are nonzero: the output once, each operand's rows at
+    those tuples (at most its distinct elements), the adjacency once where
+    masked."""
+    import torch
+
+    r, n = p.dim() - 2, p.shape[0]
+    live = n ** r
+    if mask_axes:
+        mask = torch.ones((1,) * r, device=p.device)
+        for x in mask_axes:
+            mask = mask * adj.reshape((n,) + (1,) * (x - 1) + (n,) + (1,) * (r - 1 - x))
+        live = int(torch.count_nonzero(mask.expand((n,) * r)))
+    row = p.shape[-2] * 4
+    nbytes = (n ** r * row * n_out + min(viewed_bytes(a), live * row * a.shape[-1])
+              + min(viewed_bytes(p), live * row * p.shape[-1]) + (n * n * 4 if mask_axes else 0))
+    return nbytes, live
+
+
+def compare_rows(host, want, rtol: float, what: str) -> tuple:
+    """``host`` (a copy in host memory) against ``want`` on the card, a few
+    hundred MB of rows at a time: the largest |difference| (raising past
+    ``rtol`` relative, with no absolute slack) and whether all bits agree."""
+    import torch
+
+    rows = max(1, (256 << 20) // max(1, want[:1].numel() * 4))
+    worst, equal = 0.0, True
+    for i in range(0, want.shape[0], rows):
+        got = host[i:i + rows].to(want.device)
+        worst = max(worst, max_abs_err(got, want[i:i + rows], rtol, what, atol=0.0))
+        equal = equal and bool(torch.equal(got, want[i:i + rows]))
+    return worst, equal
+
+
+def check_bag_op(be, what, a, p, tables, mask_axes, host, reps) -> dict:
+    """One bag update: the bag eMA's output (``host``, copied off the card)
+    against a second launch and against the executor's loop on the same
+    operands, with both times and the update's bound."""
+    import torch
+
+    from repro_torch.exec.local import LocalBackend
+    from repro_torch.kernels.spmm_ema.ops import bag_ema
+
+    adj = be._bag_adj if mask_axes else None
+    again = bag_ema(a, p, tables.ent, mask_axes, adj)
+    _, bitwise = compare_rows(host, again, 0.0, f"{what} repeat")
+    if not bitwise:
+        raise AssertionError(f"{what}: two bag eMA launches differ")
+    del again
+    ms = time_ms(lambda: bag_ema(a, p, tables.ent, mask_axes, adj), reps)
+    torch.cuda.empty_cache()  # the loop's blocks differ in size from the kernel's
+    if tables.kind == "extend":
+        # the new vertex's leaf, which ``a`` broadcasts over the other axes;
+        # an SpMM'd state is kernel B's own output, which the loop masks in
+        # place (0/1 masks: a repeat gives the same bits)
+        leaf = a[(slice(None),) + (0,) * (a.dim() - 3)]
+        owned = p.stride(0) != 0
+
+        def loop():
+            return LocalBackend._bag_extend_loop(p, owned, leaf, tables, list(mask_axes),
+                                                 be._bag_adj, torch.float32)
+    else:
+        def loop():
+            return LocalBackend._bag_join_loop(a, p, tables, torch.float32)
+    want = loop()
+    err, equal = compare_rows(host, want, BAG_EMA_RTOL, what)
+    del want
+    plain_ms = time_ms(loop, 1)
+    torch.cuda.empty_cache()
+    nbytes, live = bag_update_bytes(a, p, mask_axes, adj, tables.n_out)
+    row = {"shape": f"{what} r={p.dim() - 2} B={p.shape[-2]} C_a={a.shape[-1]} "
+                    f"C_p={p.shape[-1]} n_out={tables.n_out} terms={tables.n_terms} "
+                    f"masks={len(mask_axes)}",
+           "max_abs_err": err, "bitwise_repeatable": bitwise, "bitwise_vs_loop": equal,
+           "p_broadcast": p.stride(0) == 0, "p_contiguous": p.is_contiguous(),
+           "live_tuples": live, "gb": nbytes / 1e9}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * live * p.shape[-2] * tables.n_out
+                                                * tables.n_terms)
+    row["ms"], row["plain_ms"] = ms, plain_ms
+    row["tb_s"] = nbytes / ms / 1e9
+    return row
+
+
+def check_bag_ema(graph, device, reps=3) -> list:
+    """Per :data:`BAG_EMA_CASES` template, a ``blocked`` engine at its chunk
+    counts one chunk; every bag extend and join hands its own operands to
+    :func:`check_bag_op` (the engine goes on with the kernel's output).
+    Each engine's bag updates must all have run in the kernel."""
+    import torch
+
+    from repro_torch.core.engine import CountingEngine
+    from repro_torch.core.prng import prng_key, split
+
+    rows = []
+    for name, bsz in BAG_EMA_CASES:
+        engine = CountingEngine(graph, [graphlet(name)], device=device, backend="blocked",
+                                chunk_size=bsz, memory_budget_bytes=BAG_EMA_BUDGET)
+        be = engine.backend_impl
+        update, checked = be._bag_update, []
+
+        def spy(a, p, tables, mask_axes=(), name=name, update=update, checked=checked):
+            got = update(a, p, tables, mask_axes)
+            if got is None:
+                raise AssertionError(f"[bag_ema] {name}: an fp32 bag update took the loop")
+            torch.cuda.synchronize()
+            host = got.cpu()  # off the card: the loop's output takes its room
+            del got
+            checked.append(check_bag_op(be, f"{name} update {len(checked)}", a, p,
+                                        tables, tuple(mask_axes), host, reps))
+            log(f"[bag_ema] {json.dumps(checked[-1])}")
+            return host.to(device)
+
+        be._bag_update = spy
+        est = engine.count_keys(split(prng_key(0, device), bsz))
+        if not checked or engine.counters["bag_fused"] != len(checked) \
+                or engine.counters["bag_loop"]:
+            raise AssertionError(f"[bag_ema] {name}: {len(checked)} updates checked, "
+                                 f"counters {engine.counters}")
+        if not (est.size and (est >= 0).all() and bool(torch.isfinite(torch.as_tensor(est)).all())):
+            raise AssertionError(f"[bag_ema] {name}: estimates {est.tolist()}")
+        rows.extend(checked)
+        del engine, be, spy
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1424,7 +1610,7 @@ def tune_path(graphs, device, budget) -> dict:
     """Phase 5d over ``graphs`` (name -> graph), then the mixed check on the
     last; the tuner's probes are the counted launches."""
     reset_counting_launches()
-    totals = {"spmm_ema": 0, "spmm_blocked": 0}
+    totals = {"spmm_ema": 0, "spmm_blocked": 0, "bag_ema": 0}
     records = []
     for name, graph in graphs.items():
         reset_counting_launches()
@@ -2293,7 +2479,7 @@ def gnn_kernel_kind(name: str) -> str:
 
 
 def wrapper_launches() -> dict:
-    """The three kernel wrappers' launch counters."""
+    """The four kernel wrappers' launch counters."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     return {**counting_launches(), "flash_attention": flash_attention.launches}
@@ -3757,7 +3943,8 @@ def wide_path(device, budget) -> tuple:
     memory record for phase 10."""
     cells, mem_recs = zip(*(wide_cell(t, n, device, budget) for t, n in WIDE_CELLS))
     return ({"cells": list(cells),
-             "launches": {"spmm_ema": sum(c["launches"]["spmm_ema"] for c in cells)},
+             "launches": {k: sum(c["launches"][k] for c in cells)
+                          for k in ("spmm_ema", "bag_ema")},
              "rows": [r for c in cells for r in c["wide_stages"]]}, list(mem_recs))
 
 
@@ -4058,6 +4245,8 @@ def run(args, device, sweep) -> int:
                                   for c in bag_widths_of(rec)} - set(bag_launch_widths))
     bag_rows, bag_grids = check_spmm_blocked(prepare_operand(motif_graph, device),
                                   bag_launch_widths + one_coloring_widths, device, reps=3)
+    torch.cuda.empty_cache()
+    bag_ema_rows = check_bag_ema(motif_graph, device)
     served = service_path(motif_graph, device, MEMORY_BUDGET_BYTES)
     tuned = tune_path({"rmat2k": rmat_graph(**TABLE_III_GRAPH_SPEC), "rmat8k": motif_graph},
                       device, MEMORY_BUDGET_BYTES)
@@ -4151,6 +4340,22 @@ def run(args, device, sweep) -> int:
                              "gnn": gnn["launches"]["spmm_blocked"],
                              "recsys": recsys["launches"]["spmm_blocked"],
                              "launch": launch["launches"]["spmm_blocked"]}),
+        # times: every bag extend and join of g4-2, g4-3 and g3-1 at a chunk
+        # of 10, each template in an engine of its own; "plain_ms" is the
+        # executor's loop on the same operands
+        dict(kernel_record(
+            "bag_ema", "motif", "src/repro_torch/kernels/spmm_ema/csrc/spmm_ema.cu",
+            "none: src/repro/exec/local.py:220 _bag_extend / :279 _bag_join (XLA gathers "
+            "and multiply-adds)", motif["launches"]["bag_ema"], bag_ema_rows,
+        ), launches_by_path={"tree": main["launches"]["bag_ema"],
+                             "motif": motif["launches"]["bag_ema"],
+                             "service": served["launches"]["bag_ema"],
+                             "tune": tuned["launches"]["bag_ema"],
+                             "frontend": front["launches"]["bag_ema"],
+                             "wide": wide["launches"]["bag_ema"],
+                             "gnn": gnn["launches"]["bag_ema"],
+                             "recsys": recsys["launches"]["bag_ema"],
+                             "launch": launch["launches"]["bag_ema"]}),
         # times: one launch at granite-8b's forward shape (b=4, s=4096),
         # which the bf16 forward launches once per layer (the fp32 gate
         # forward runs flash_attention.cu, checked by the logits gate); the
@@ -4176,6 +4381,7 @@ def run(args, device, sweep) -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "colorings": colorings, "table_iii": table_iii,
              "partition": partition, "main": main, "motif": motif, "bag_spmm": bag_rows,
+             "bag_ema": bag_ema_rows,
              "spmm_blocked_model": {**spmm_grids, **bag_grids},
              "service": served, "tune": tuned, "frontend": front, "lm": lm, "serve": lm_served,
              "mla_moe": mla, "serve_mla": mla_served, "dbrx": dbrx, "moe_ep": moe_ep,

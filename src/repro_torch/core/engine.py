@@ -433,9 +433,13 @@ class CountingEngine:
         self._norm_factors = torch.tensor(self._norms, dtype=torch.float32, device=self.device)
 
         # ``trace_count`` counts chunk-function builds (the reference counts
-        # jit traces); ``passive_aggregations`` counts aggregation launches.
+        # jit traces); ``passive_aggregations`` counts aggregation launches;
+        # ``bag_fused`` / ``bag_loop`` the bag extends and joins whose update
+        # ran in the bag eMA kernel / in the executor's per-term loop.
         self.trace_count = 0
-        self.counters: Dict[str, int] = {"passive_aggregations": 0}
+        self.counters: Dict[str, int] = {
+            "passive_aggregations": 0, "bag_fused": 0, "bag_loop": 0,
+        }
 
         # --- layer 3: bind the plan to the device.
         self.backend_impl: EngineBackend = make_backend(
@@ -587,6 +591,7 @@ class CountingEngine:
                      if hasattr(self.backend_impl, "describe_comm") else None),
             "plan": self.plan_ir.describe(),
             "range": self.range.describe(),
+            "bag_ops": {"fused": self.counters["bag_fused"], "loop": self.counters["bag_loop"]},
             "memory": {
                 "budget_bytes": self.memory_budget_bytes,
                 "fusion_slack": self.cost.fusion_slack,

@@ -29,6 +29,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.colorsets import bucketed_split_entries
 from repro_torch.core.prng import randint
+from repro_torch.kernels.spmm_ema.ops import pack_bag_entries
 
 __all__ = [
     "StageTables",
@@ -150,7 +151,9 @@ class BagStageTables:
     one gather-multiply-add per term, so the executor needs only the rank
     tables, stored term-major: ``idx_a[t]`` / ``idx_p[t]`` are the
     ``(n_out,)`` ranks of term ``t`` (the reference's ``(n_out, n_terms)``
-    tables, transposed).
+    tables, transposed).  ``ent`` packs both for the bag eMA kernel
+    (:func:`repro_torch.kernels.spmm_ema.ops.pack_bag_entries`); None where
+    a rank passes the kernel's 15 bits, and the op then takes the loop.
     """
 
     kind: str  # "extend" | "join"
@@ -158,6 +161,7 @@ class BagStageTables:
     n_terms: int
     idx_a: torch.Tensor  # (n_terms, n_out) int64
     idx_p: torch.Tensor  # (n_terms, n_out) int64
+    ent: Optional[torch.Tensor]  # (n_terms, n_out) int32: idx_a | idx_p << 16
 
 
 def build_bag_tables(plan, device) -> Dict[Tuple[int, int], BagStageTables]:
@@ -182,18 +186,20 @@ def build_bag_tables(plan, device) -> Dict[Tuple[int, int], BagStageTables]:
                 key = ("join", table.k, table.m1, table.m2, table.overlap)
                 n_terms = table.n_pairs
             if key not in cache:
+                idx_a, idx_p = np.asarray(table.idx_a).T, np.asarray(table.idx_p).T
 
                 def term_major(idx):
                     return torch.as_tensor(
-                        np.ascontiguousarray(np.asarray(idx).T), dtype=torch.long, device=device
+                        np.ascontiguousarray(idx), dtype=torch.long, device=device
                     )
 
                 cache[key] = BagStageTables(
                     kind=op.kind,
                     n_out=table.n_out,
                     n_terms=n_terms,
-                    idx_a=term_major(table.idx_a),
-                    idx_p=term_major(table.idx_p),
+                    idx_a=term_major(idx_a),
+                    idx_p=term_major(idx_p),
+                    ent=pack_bag_entries(idx_a, idx_p, device),
                 )
             out[(p_idx, i)] = cache[key]
     return out

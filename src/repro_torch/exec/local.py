@@ -12,7 +12,12 @@ and liveness schedule.  A bag state over ``r`` template vertices is an
 ``(n,)*r + (B, C)`` tensor; an extend contracts one vertex axis through the
 backend's :meth:`~LocalBackend.spmm` on the state flattened to ``(n,
 n**(r-1) * B, C)``, so under ``blocked`` every bag extend with an
-eliminated neighbor is one launch of the blocked SpMM kernel.
+eliminated neighbor is one launch of the blocked SpMM kernel.  Each extend's
+and join's colorset update (its masks and all its terms) is one launch of
+the bag eMA kernel (:func:`repro_torch.kernels.spmm_ema.ops.bag_ema`) where
+that takes the operands (fp32 on a card, on every local backend), else a
+loop of one gather-multiply-add per term; the engine counts the two as
+``counters["bag_fused"]`` / ``["bag_loop"]``.
 """
 
 from __future__ import annotations
@@ -234,9 +239,24 @@ class LocalBackend(EngineBackend):
             axes_now.pop(ax)
         return state, axes_now
 
+    def _bag_update(self, a, p, tables: BagStageTables, mask_axes=()):
+        """The bag eMA kernel's update where it takes these operands, counted
+        as ``bag_fused``; else None, counted as ``bag_loop`` (the caller
+        loops)."""
+        from repro_torch.kernels.spmm_ema.ops import bag_ema, bag_ema_refusal
+
+        counters = self.engine.counters
+        adj = self._bag_adj if mask_axes else None
+        if self.engine.policy.accum_dtype != torch.float32 or bag_ema_refusal(
+            a, p, tables.ent, mask_axes, adj
+        ):
+            counters["bag_loop"] += 1
+            return None
+        counters["bag_fused"] += 1
+        return bag_ema(a, p, tables.ent, mask_axes, adj)
+
     def _bag_extend(self, cplan, canons, p_idx, i, op, leaf, slots) -> torch.Tensor:
         eng = self.engine
-        accum = eng.policy.accum_dtype
         n = eng.graph.n
         tables: BagStageTables = self.bag_tables[(p_idx, i)]
         in_op = cplan.bag_program.ops[op.inputs[0]]
@@ -261,21 +281,18 @@ class LocalBackend(EngineBackend):
             state = state.unsqueeze(0).expand((n,) + tuple(state.shape))
             owned = False
         axes_now = [op.vertex] + axes_now
-        for x in op.mask_vertices:
-            ax = axes_now.index(x)
-            mask = self._bag_adj.reshape((n,) + (1,) * (ax - 1) + (n,) + (1,) * (state.dim() - 1 - ax))
-            # the first mask of a broadcast state materialises it; later
-            # masks, and masks of an SpMM output, multiply in place
-            state = state.mul_(mask) if owned else state * mask.to(state.dtype)
-            owned = True
-        # colorset update against the new vertex's one-hot leaf: the tree
-        # eMA with a width-1 active, one gather-multiply-add per term
+        mask_axes = [axes_now.index(x) for x in op.mask_vertices]
+        # colorset update against the new vertex's one-hot leaf (broadcast
+        # over the other vertex axes): the tree eMA with a width-1 active
         r = state.dim()
-        out = torch.zeros(tuple(state.shape[:-1]) + (tables.n_out,), dtype=accum, device=state.device)
-        for t in range(tables.n_terms):
-            la = leaf.index_select(2, tables.idx_a[t]).to(accum)  # (n, B, n_out)
-            la = la.reshape((n,) + (1,) * (r - 3) + tuple(la.shape[1:]))
-            out.addcmul_(la, state.index_select(r - 1, tables.idx_p[t]).to(accum))
+        la = leaf.reshape((n,) + (1,) * (r - 3) + tuple(leaf.shape[1:]))
+        out = self._bag_update(
+            la.expand(tuple(state.shape[:-1]) + (leaf.shape[-1],)), state, tables, mask_axes
+        )
+        if out is None:
+            out = self._bag_extend_loop(
+                state, owned, leaf, tables, mask_axes, self._bag_adj, eng.policy.accum_dtype
+            )
         out, axes_now = self._bag_forget(out, axes_now, op.forget_vertices)
         # restore the sorted axis order (the new vertex's axis is in front)
         order = sorted(range(len(axes_now)), key=lambda idx: axes_now[idx])
@@ -283,10 +300,36 @@ class LocalBackend(EngineBackend):
             out = out.permute(order + list(range(len(axes_now), out.dim())))
         return out
 
+    @staticmethod
+    def _bag_extend_loop(state, owned, leaf, tables: BagStageTables, mask_axes, adj, accum):
+        """An extend's update as the loop: the masks multiplied into the
+        state, then one gather-multiply-add per term."""
+        n = leaf.shape[0]
+        for ax in mask_axes:
+            mask = adj.reshape((n,) + (1,) * (ax - 1) + (n,) + (1,) * (state.dim() - 1 - ax))
+            # the first mask of a broadcast state materialises it; later
+            # masks, and masks of an SpMM output, multiply in place
+            state = state.mul_(mask) if owned else state * mask.to(state.dtype)
+            owned = True
+        r = state.dim()
+        out = torch.zeros(tuple(state.shape[:-1]) + (tables.n_out,), dtype=accum, device=state.device)
+        for t in range(tables.n_terms):
+            la = leaf.index_select(2, tables.idx_a[t]).to(accum)  # (n, B, n_out)
+            la = la.reshape((n,) + (1,) * (r - 3) + tuple(la.shape[1:]))
+            out.addcmul_(la, state.index_select(r - 1, tables.idx_p[t]).to(accum))
+        return out
+
     def _bag_join(self, op, tables: BagStageTables, slots, canons) -> torch.Tensor:
-        accum = self.engine.policy.accum_dtype
         s1 = slots[canons[op.inputs[0]]]
         s2 = slots[canons[op.inputs[1]]]
+        out = self._bag_update(s1, s2, tables)
+        if out is None:
+            out = self._bag_join_loop(s1, s2, tables, self.engine.policy.accum_dtype)
+        return out
+
+    @staticmethod
+    def _bag_join_loop(s1, s2, tables: BagStageTables, accum):
+        """A join's update as the loop: one gather-multiply-add per term."""
         last = s1.dim() - 1
         out = torch.zeros(tuple(s1.shape[:-1]) + (tables.n_out,), dtype=accum, device=s1.device)
         for t in range(tables.n_terms):

@@ -545,3 +545,183 @@ extern "C" int spmm_ema_launch(const int* row_ptr, const int* src, int n, const 
 // The wide eMA block's shape, which ops.py plans for (checked when it loads).
 extern "C" int spmm_ema_wide_threads() { return kWideThreads; }
 extern "C" int spmm_ema_wide_rows() { return kWideRows; }
+
+// ---------------------------------------------------------------------------
+// The bag eMA: one bag extend's or join's colorset update, with no SpMM.
+//
+// Replaces no TPU kernel: the reference runs a bag op's update as XLA
+// gathers and multiply-adds (src/repro/exec/local.py _bag_extend /
+// _bag_join), as the port's loop in exec/local.py does off the card.  It is
+// kernel A's eMA without the aggregate: for every output (vertex tuple
+// i = (i_0, ..., i_{r-1}), coloring b, column o)
+//
+//   out[i, b, o] = (prod_x adj[i_0, i_x]) * sum_t A[i, b, ia[t][o]] * P[i, b, ip[t][o]],
+//
+// the terms summed in table order from zero, one FMA each (the loop's
+// addcmul_), the product of the 0/1 masks (axes x of the op's mask
+// vertices; i_0 is the new vertex) applied after the sum.  A is the new
+// vertex's one-hot leaf broadcast over the other axes (extend) or the first
+// state (join); P the SpMM'd or broadcast state (extend) or the second state
+// (join).  Both are read through their strides on the vertex axes (stride 0
+// where broadcast, permuted where a forget left them so); their (B, C) tail
+// is contiguous.
+//
+// Bound: device memory.  The loop moved each output 4 + 2 * n_terms times
+// (zero fill, each term's gathers of both operands, addcmul_'s read and
+// write) and a masked state twice more.  Here each output is written once
+// and each operand row read once: a row's B * C floats lie in the few lines
+// one warp touches, so its other terms hit L1.  An output whose mask is 0
+// reads nothing but its mask (0 times a finite sum is 0), so a masked
+// extend reads P only at the graph's edges.  A block takes whole vertex
+// tuples, about kBagOutputs outputs: its first threads decode one tuple
+// each (offsets and mask, into shared memory), then all threads walk the
+// block's outputs in memory order, so each warp stores 128 contiguous bytes.
+// The term table (int32 ia | ip << 16, term-major) sits in shared memory; a
+// warp's lanes read one term of consecutive columns.  Divisions by the
+// launch's constants are multiply-shifts.  No atomics: two launches on the
+// same inputs give the same bits.
+
+namespace {
+
+constexpr int kBagMaxAxes = 6;     // vertex axes of a bag state (k = 6 graphlets: 5)
+constexpr int kBagThreads = 256;
+constexpr int kBagOutputs = 4096;  // outputs one block aims at (whole tuples)
+
+// x / d for x < 2^31 by one multiply-high (PyTorch's IntDivider).
+struct FastDiv {
+  unsigned d, m, s;
+  FastDiv() = default;
+  explicit FastDiv(unsigned div) : d(div) {
+    for (s = 0; s < 31 && (1u << s) < d; ++s) {
+    }
+    const uint64_t one = 1;
+    m = static_cast<unsigned>(((one << 32) * ((one << s) - d)) / d + 1);
+  }
+  __device__ __forceinline__ unsigned div(unsigned x) const { return (__umulhi(x, m) + x) >> s; }
+};
+
+struct BagShape {
+  int rank;              // vertex axes of the output
+  int mask_bits;         // bit x: multiply by adj[i_0, i_x]
+  int n_terms, n_out;
+  int width;             // B * n_out: the outputs of one vertex tuple
+  int tuples_per_block;
+  unsigned n_tuples;     // n ** rank
+  int64_t adj_n;         // the adjacency's row stride
+  int64_t a_stride[kBagMaxAxes], p_stride[kBagMaxAxes];  // vertex axes
+  int64_t a_bstride, p_bstride;                          // the coloring axis
+  FastDiv by_n, by_width, by_out;
+};
+
+__global__ void __launch_bounds__(kBagThreads)
+bag_ema_kernel(const BagShape sh, const float* __restrict__ a, const float* __restrict__ p,
+               const float* __restrict__ adj, const int* __restrict__ ent,
+               float* __restrict__ out) {
+  extern __shared__ unsigned bag_ent[];  // n_terms x n_out
+  __shared__ int64_t tup_a[kBagThreads], tup_p[kBagThreads];
+  __shared__ float tup_m[kBagThreads];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < sh.n_terms * sh.n_out; i += kBagThreads) bag_ent[i] = ent[i];
+  const unsigned t0 = blockIdx.x * static_cast<unsigned>(sh.tuples_per_block);
+  const int n_t = min(sh.tuples_per_block, static_cast<int>(sh.n_tuples - t0));
+  if (tid < n_t) {
+    unsigned idx[kBagMaxAxes];
+    unsigned rest = t0 + tid;
+#pragma unroll
+    for (int x = kBagMaxAxes - 1; x > 0; --x) {
+      idx[x] = 0;
+      if (x < sh.rank) {
+        const unsigned q = sh.by_n.div(rest);
+        idx[x] = rest - q * sh.by_n.d;
+        rest = q;
+      }
+    }
+    idx[0] = rest;
+    int64_t oa = 0, op = 0;
+    float m = 1.f;
+#pragma unroll
+    for (int x = 0; x < kBagMaxAxes; ++x) {
+      if (x < sh.rank) {
+        oa += idx[x] * sh.a_stride[x];
+        op += idx[x] * sh.p_stride[x];
+        if (sh.mask_bits >> x & 1) m *= __ldg(adj + idx[0] * sh.adj_n + idx[x]);
+      }
+    }
+    tup_a[tid] = oa;
+    tup_p[tid] = op;
+    tup_m[tid] = m;
+  }
+  __syncthreads();
+  const int count = n_t * sh.width;
+  float* dst = out + static_cast<int64_t>(t0) * sh.width;
+  for (int l = tid; l < count; l += kBagThreads) {
+    const unsigned tl = sh.by_width.div(l);
+    const unsigned j = l - tl * sh.width;
+    const unsigned b = sh.by_out.div(j);
+    const unsigned o = j - b * sh.n_out;
+    const float m = tup_m[tl];
+    float v = 0.f;
+    if (m != 0.f) {
+      const float* pa = a + tup_a[tl] + b * sh.a_bstride;
+      const float* pp = p + tup_p[tl] + b * sh.p_bstride;
+      float acc = 0.f;
+      for (int t = 0; t < sh.n_terms; ++t) {
+        const unsigned e = bag_ent[t * sh.n_out + o];
+        acc = fmaf(__ldg(pa + (e & 0xffffu)), __ldg(pp + (e >> 16)), acc);
+      }
+      v = acc * m;
+    }
+    dst[l] = v;
+  }
+}
+
+}  // namespace
+
+// One bag op's update into the contiguous (n,) * rank + (bsz, n_out) `out`.
+// a_strides / p_strides (host arrays): the rank vertex axes' strides, then
+// the coloring axis's; mask_axes: the vertex axes x of adj[i_0, i_x].
+// Returns cudaErrorInvalidValue for a shape the kernel does not take (the
+// wrapper checks first).
+extern "C" int bag_ema_launch(const float* a, const int64_t* a_strides, const float* p,
+                              const int64_t* p_strides, int rank, int n, int bsz,
+                              const int* ent, int n_terms, int n_out, int n_masks,
+                              const int* mask_axes, const float* adj, float* out,
+                              void* stream) {
+  if (rank < 0 || rank > kBagMaxAxes || n_masks < 0 || n_masks >= kBagMaxAxes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint64_t tuples = 1;
+  for (int x = 0; x < rank; ++x) tuples *= static_cast<uint64_t>(n);
+  const int64_t width = static_cast<int64_t>(bsz) * n_out;
+  if (tuples >= (1ull << 31) || width >= (1ll << 30) || n_terms * n_out > 4096)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tuples == 0 || width == 0) return static_cast<int>(cudaSuccess);
+  BagShape sh{};
+  sh.rank = rank;
+  for (int j = 0; j < n_masks; ++j) {
+    if (mask_axes[j] <= 0 || mask_axes[j] >= rank) return static_cast<int>(cudaErrorInvalidValue);
+    sh.mask_bits |= 1 << mask_axes[j];
+  }
+  sh.n_terms = n_terms;
+  sh.n_out = n_out;
+  sh.width = static_cast<int>(width);
+  const int64_t per_block = kBagOutputs / width;
+  sh.tuples_per_block = per_block < 1 ? 1 : per_block > kBagThreads ? kBagThreads
+                                                                     : static_cast<int>(per_block);
+  sh.n_tuples = static_cast<unsigned>(tuples);
+  sh.adj_n = n;
+  for (int x = 0; x < rank; ++x) {
+    sh.a_stride[x] = a_strides[x];
+    sh.p_stride[x] = p_strides[x];
+  }
+  sh.a_bstride = a_strides[rank];
+  sh.p_bstride = p_strides[rank];
+  sh.by_n = FastDiv(static_cast<unsigned>(n > 1 ? n : 1));
+  sh.by_width = FastDiv(static_cast<unsigned>(width));
+  sh.by_out = FastDiv(static_cast<unsigned>(n_out));
+  const unsigned blocks =
+      static_cast<unsigned>((tuples + sh.tuples_per_block - 1) / sh.tuples_per_block);
+  const size_t smem = static_cast<size_t>(n_terms) * n_out * sizeof(unsigned);
+  bag_ema_kernel<<<blocks, kBagThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      sh, a, p, adj, ent, out);
+  return static_cast<int>(cudaGetLastError());
+}

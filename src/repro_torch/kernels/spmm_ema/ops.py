@@ -28,6 +28,15 @@ partition.  On CPU tensors :func:`spmm_ema` runs the plain two-pass version
 (:func:`repro_torch.kernels.spmm_ema.ref.spmm_ema_ref`); on CUDA tensors it
 launches ``csrc/spmm_ema.cu`` or raises.
 
+The same library holds the bag eMA (:func:`bag_ema`): a non-tree bag
+op's colorset update, the eMA above without the SpMM, over states of any
+number of vertex axes read through their strides, with the op's adjacency
+masks read inside the kernel.  It runs only on a card: it has no plain
+version of its own, since the executor's per-term loop, which runs the
+update everywhere else, gives the same bits.  :func:`bag_ema_refusal`
+says why a launch would not be taken (off a card, not fp32, past the
+kernel's limits); the executor then runs its loop.
+
 The wide path can be forced at small widths by lowering the module
 constants: :data:`SMEM_BUDGET_BYTES` below a row's ``(C_p + C_a) * 4``
 bytes sends a stage to it, :data:`WIDE_SMEM_BYTES` caps a piece's
@@ -72,6 +81,11 @@ __all__ = [
     "WIDE_SCRATCH_BYTES",
     "WIDE_THREADS",
     "wave_blocks",
+    "pack_bag_entries",
+    "bag_ema_refusal",
+    "bag_ema",
+    "BAG_MAX_AXES",
+    "BAG_MAX_ENTRIES",
 ]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "spmm_ema.cu"
@@ -581,3 +595,114 @@ def spmm_ema(
 
 spmm_ema.launches = 0
 spmm_ema.device_launches = 0
+
+
+#: Most vertex axes of a bag eMA operand (``kBagMaxAxes`` in the source;
+#: the 6-vertex graphlets' bag states have up to 5).
+BAG_MAX_AXES = 6
+
+#: Most term-table entries (``n_terms x n_out``) one bag eMA launch holds
+#: in shared memory.
+BAG_MAX_ENTRIES = 4096
+
+
+def pack_bag_entries(idx_a, idx_p, device) -> Optional[torch.Tensor]:
+    """A bag op's term-major ``(n_terms, n_out)`` rank tables as the bag
+    eMA reads them: one int32 ``ia | ip << 16`` per entry, term-major; None
+    where a rank passes 2^15 - 1 (the op then takes the executor's loop)."""
+    idx_a = np.asarray(idx_a, dtype=np.int64)
+    idx_p = np.asarray(idx_p, dtype=np.int64)
+    if idx_a.shape != idx_p.shape or idx_a.ndim != 2:
+        raise ValueError("idx_a and idx_p must be (n_terms, n_out) arrays")
+    if idx_a.size and min(idx_a.min(), idx_p.min()) < 0:
+        raise ValueError("bag table ranks must be >= 0")
+    if idx_a.size and max(idx_a.max(), idx_p.max()) >= 1 << 15:
+        return None
+    packed = np.ascontiguousarray(idx_a | idx_p << 16, dtype=np.int32)
+    return torch.as_tensor(packed, device=device)
+
+
+def bag_ema_refusal(a: torch.Tensor, p: torch.Tensor, ent: Optional[torch.Tensor],
+                    mask_axes=(), adj: Optional[torch.Tensor] = None) -> Optional[str]:
+    """Why :func:`bag_ema` would not launch the kernel on these operands and
+    packed table ``ent`` (None: it would).  The executor loops where this
+    gives a reason: on the CPU, for a dtype other than float32 (a bf16
+    store), and past the kernel's limits (ranks of 2^15 or more, which
+    :func:`pack_bag_entries` does not pack, :data:`BAG_MAX_AXES`,
+    :data:`BAG_MAX_ENTRIES`, 2^31 vertex tuples)."""
+    if p.device.type != "cuda":
+        return f"runs on a card, not {p.device.type}"
+    if ent is None:
+        return "the op's table has ranks of 2^15 or more"
+    used = [a, p] + ([adj] if mask_axes else [])
+    if any(t.dtype != torch.float32 for t in used):
+        return f"takes float32, got {', '.join(str(t.dtype) for t in used)}"
+    if ent.dtype != torch.int32 or ent.dim() != 2:
+        return f"the packed table is {ent.dtype} {tuple(ent.shape)}, not int32 (n_terms, n_out)"
+    if any(t.device != p.device for t in used + [ent]):
+        return "operands on different devices"
+    r = p.dim() - 2
+    if r < 0 or r > BAG_MAX_AXES or a.dim() != p.dim() or a.shape[:-1] != p.shape[:-1]:
+        return f"operands {tuple(a.shape)} / {tuple(p.shape)} are no bag states"
+    n = p.shape[0] if r else 1
+    if any(d != n for d in p.shape[:r]) or n ** r >= 2**31:
+        return f"vertex axes {tuple(p.shape[:r])} are not n < 2^31 / r each"
+    if a.stride(-1) != 1 or p.stride(-1) != 1:
+        return "color columns are not contiguous"
+    if ent.numel() > BAG_MAX_ENTRIES or max(a.shape[-1], p.shape[-1]) > 1 << 15:
+        return f"a table of {ent.numel()} entries over {a.shape[-1]} / {p.shape[-1]} columns"
+    if mask_axes and (adj is None or tuple(adj.shape) != (n, n) or not adj.is_contiguous()
+                      or not all(0 < x < r for x in mask_axes)):
+        return f"masks {tuple(mask_axes)} need a contiguous (n, n) adjacency and axes in (0, r)"
+    return None
+
+
+def _bag_library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    fn = lib.bag_ema_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, i, i, p, i, i, i, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bag_ema(a: torch.Tensor, p: torch.Tensor, ent: torch.Tensor, mask_axes=(),
+            adj: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One bag op's colorset update on a card, ``(n,) * r + (B, C_a)`` and
+    ``(n,) * r + (B, C_p)`` -> a contiguous ``(n,) * r + (B, n_out)``
+    float32 state: ``out[i, b, o] = (prod_x adj[i_0, i_x]) * sum_t
+    a[i, b, ia[t][o]] * p[i, b, ip[t][o]]``, the terms summed in table order
+    from zero.  For 0/1 masks and finite operands that is, bit for bit, the
+    executor's loop (``exec.local.LocalBackend._bag_extend_loop`` /
+    ``_bag_join_loop``), which the card tests hold it against.
+
+    ``ent`` is the op's :func:`pack_bag_entries` table
+    (``exec.base.BagStageTables.ent``); ``mask_axes`` are the vertex axes
+    ``x`` of the masks ``adj[i_0, i_x]``.  Launches the kernel, adding one
+    to ``bag_ema.launches``, or raises with :func:`bag_ema_refusal`'s
+    reason (on the CPU too: the executor loops there).
+    """
+    mask_axes = tuple(mask_axes)
+    why = bag_ema_refusal(a, p, ent, mask_axes, adj)
+    if why is not None:
+        raise ValueError(f"bag_ema cannot launch: {why}")
+    r = p.dim() - 2
+    n_terms, n_out = ent.shape
+    out = torch.empty(tuple(p.shape[:-1]) + (n_out,), dtype=torch.float32, device=p.device)
+    strides = ctypes.c_int64 * (r + 1)
+    axes = (ctypes.c_int * max(len(mask_axes), 1))(*mask_axes)
+    status = _bag_library().bag_ema_launch(
+        a.data_ptr(), strides(*a.stride()[:-1]),
+        p.data_ptr(), strides(*p.stride()[:-1]),
+        r, p.shape[0] if r else 1, p.shape[-2],
+        ent.data_ptr(), n_terms, n_out,
+        len(mask_axes), axes, adj.data_ptr() if mask_axes else None,
+        out.data_ptr(), torch.cuda.current_stream(p.device).cuda_stream,
+    )
+    _build.check(status, "bag_ema")
+    bag_ema.launches += 1
+    return out
+
+
+bag_ema.launches = 0

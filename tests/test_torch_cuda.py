@@ -19,8 +19,10 @@ at u12's.  Kernel B also runs at the widths of bag extends
 in column slabs), and refuses widths whose launch counts would pass its
 32-bit ints, as kernel
 A's wrapper checks its own at u18's and u20's sizes; non-tree
-templates run through the ``blocked`` engine on the card, and the threefry
-draws on the card equal the CPU's bit for bit.
+templates run through the ``blocked`` engine on the card, every fp32 bag
+update through the bag eMA kernel (held against the executor's loop on
+the card and the CPU on strided, broadcast and masked operands, and
+bitwise on a repeat), and the threefry draws on the card equal the CPU's bit for bit.
 Tolerances: the plain versions sum with ``index_add_``, whose CUDA atomics
 add in no fixed order, and the kernels contract multiply-adds into FMAs.
 The fp32 flash-attention kernel computes in fp32 like its plain version
@@ -457,20 +459,86 @@ def test_bag_stages_on_card_match_edges_and_cpu(card):
     keys = split(prng_key(1), 3)
     for k in (3, 4):
         ts = list(connected_graphlets(k))
-        before = spmm_blocked.launches
-        got = CountingEngine(g, ts, device=card, backend="blocked").count_keys(keys)
+        before, fused_before = spmm_blocked.launches, ema_ops.bag_ema.launches
+        blocked = CountingEngine(g, ts, device=card, backend="blocked")
+        got = blocked.count_keys(keys)
         assert spmm_blocked.launches > before  # bag extends went through kernel B
-        want = CountingEngine(g, ts, device=card, backend="edges").count_keys(keys)
+        # every fp32 bag update went through the bag eMA kernel
+        assert blocked.counters["bag_fused"] > 0 and blocked.counters["bag_loop"] == 0
+        assert ema_ops.bag_ema.launches - fused_before == blocked.counters["bag_fused"]
+        assert np.array_equal(blocked.count_keys(keys), got)  # bitwise on a repeat
+        edges = CountingEngine(g, ts, device=card, backend="edges")
+        want = edges.count_keys(keys)
+        assert edges.counters["bag_fused"] > 0 and edges.counters["bag_loop"] == 0
         np.testing.assert_allclose(got, want, rtol=1e-4)
-        cpu = CountingEngine(g, ts, device="cpu", backend="edges").count_keys(keys)
-        np.testing.assert_allclose(got, cpu, rtol=1e-4)
+        cpu = CountingEngine(g, ts, device="cpu", backend="edges")
+        np.testing.assert_allclose(got, cpu.count_keys(keys), rtol=1e-4)
+        assert cpu.counters["bag_fused"] == 0 and cpu.counters["bag_loop"] > 0
+    # a bf16 store falls back to the loop on the card
+    half = CountingEngine(g, list(connected_graphlets(3)), device=card, backend="blocked",
+                          dtype_policy="bf16")
+    half.count_keys(keys)
+    assert half.counters["bag_fused"] == 0 and half.counters["bag_loop"] > 0
     tiny = grid_graph(4, 5)
     for name in ("triangle", "square", "diamond", "clique4"):
         t = get_template(name)
         plan = build_counting_plan(t)
         c = np.random.default_rng(2).integers(0, t.k, size=tiny.n)
-        raw = float(CountingEngine(tiny, [t], backend="blocked").raw_counts(c)[0])
+        eng = CountingEngine(tiny, [t], backend="blocked")
+        raw = float(eng.raw_counts(c)[0])
+        assert eng.counters["bag_fused"] > 0 and eng.counters["bag_loop"] == 0
         assert raw / plan.automorphisms == brute_force_colorful(tiny, t, c)
+
+
+# (vertex axes, B, SpMM'd input, mask axes, permuted input) at n = 37
+BAG_EMA_CASES = [
+    (1, 3, True, (), False),
+    (2, 10, False, (1,), False),
+    (2, 23, True, (1,), False),
+    (2, 10, True, (), True),
+    (3, 3, True, (1, 2), False),
+    (3, 2, False, (2,), True),
+]
+
+
+@pytest.mark.parametrize("r,bsz,spmm,mask_axes,permuted", BAG_EMA_CASES)
+def test_bag_ema_kernel(card, r, bsz, spmm, mask_axes, permuted):
+    """The bag eMA against the executor's loop on the same operands, on the
+    card and on the CPU (the loop's ``addcmul_`` need not contract into an
+    FMA as the kernel's does: 1e-6 relative), and bitwise on a repeat."""
+    from repro_torch.exec.local import LocalBackend
+
+    n, k, c_p, n_out = 37, 4, 6, 4
+    rng = np.random.default_rng(r * 7 + bsz)
+    ia, ip = rng.integers(0, k, (3, n_out)), rng.integers(0, c_p, (3, n_out))
+    ent = ema_ops.pack_bag_entries(ia, ip, card)
+    adj = rng.random((n, n)) < 0.3
+    adj = torch.as_tensor((adj | adj.T).astype(np.float32), device=card)
+    shape = (n,) * r + (bsz, c_p)
+    p = torch.rand(shape[1:] if not spmm else shape, device=card)
+    if permuted and p.dim() >= 4:
+        order = list(range(p.dim() - 2))[::-1] + [p.dim() - 2, p.dim() - 1]
+        p = p.permute(order).contiguous().permute(order)
+    if not spmm:
+        p = p.unsqueeze(0).expand(shape)
+    leaf = torch.rand((n, bsz, k), device=card)
+    a = leaf.reshape((n,) + (1,) * (r - 1) + (bsz, k)).expand(shape[:-1] + (k,))
+    before = ema_ops.bag_ema.launches
+    got = ema_ops.bag_ema(a, p, ent, mask_axes, adj)
+    again = ema_ops.bag_ema(a, p, ent, mask_axes, adj)
+    torch.cuda.synchronize()
+    assert ema_ops.bag_ema.launches - before == 2
+    assert torch.equal(got, again)
+    for dev in (card, torch.device("cpu")):
+        tables = dataclasses.make_dataclass("T", ["idx_a", "idx_p", "n_out", "n_terms"])(
+            torch.as_tensor(ia, device=dev), torch.as_tensor(ip, device=dev), n_out, 3)
+        state = p.to(dev)
+        loop = LocalBackend._bag_extend_loop(state.clone() if spmm else state, spmm,
+                                             leaf.to(dev), tables, list(mask_axes), adj.to(dev),
+                                             torch.float32)
+        torch.testing.assert_close(got.to(dev), loop, rtol=1e-6, atol=0)
+    with pytest.raises(ValueError, match="float32"):
+        ema_ops.bag_ema(a.to(torch.bfloat16), p.to(torch.bfloat16), ent)
 
 
 def test_prng_draws_on_card_equal_cpu(card):

@@ -42,8 +42,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    have launched (``launches`` counts wrapper calls that launched,
    ``device_launches`` the kernels those calls issued).  The same colorings go through the plain ``edges``
    backend on the card, and the totals must agree.  Records the engine's
-   build time (the partition's part of it too), the kernels' scratch bytes
-   and the peak device memory.
+   build time (the partition's part of it too) and the kernels' scratch
+   bytes.  The benchmark's ``rmat20-u12-batch`` cell times this path.
 5. Exactness: on tiny grid and Erdos-Renyi graphs the ``blocked`` engine's
    raw counts equal the brute-force colorful counts: tree templates, every
    stage through the fused kernel, and the triangle, tailed triangle,
@@ -59,20 +59,19 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    that the engine counts as ``bag_fused``, with none on its loop); totals
    per coloring within ``TOTALS_RTOL`` of an ``edges`` engine on the same
    keys whose bag updates all take the executor's loop (no bag eMA
-   launch).  Records
-   seconds per coloring, peak memory against the cost model's prediction,
-   a ``torch.profiler`` split with the device's idle share, and, at every
-   bag width the engines launch the blocked SpMM kernel at (and at the
-   widths of one coloring), the kernel against its plain version with its
-   time, bound and ``torch.sparse.mm``'s time.  Then the bag eMA
-   (``[bag_ema]``): g4-2, g4-3 and g3-1 each in a ``blocked`` engine at a
-   chunk of 10 colorings (the motif benchmark's), whose every bag extend
-   and join hands its own operands to the kernel and to the executor's
-   loop (``LocalBackend._bag_extend_loop`` / ``_bag_join_loop``): every
-   output within ``BAG_EMA_RTOL`` of the loop's, a second launch bitwise
-   equal, and the kernel's and the loop's times beside the update's bound
-   (each output written once, each operand row read once where its masks
-   are nonzero, the adjacency once).
+   launch).  The benchmark's ``rmat8k-motifs-batch`` cell times this path.
+   Then, at every bag width the engines launch the blocked SpMM kernel at
+   (and at the widths of one coloring), the kernel against its plain
+   version with its time, bound and ``torch.sparse.mm``'s time.  Then the
+   bag eMA (``[bag_ema]``): g4-2, g4-3 and g3-1 each in a ``blocked``
+   engine at a chunk of 10 colorings (the motif benchmark's), whose every
+   bag extend and join hands its own operands to the kernel and to the
+   executor's loop (``LocalBackend._bag_extend_loop`` /
+   ``_bag_join_loop``): every output within ``BAG_EMA_RTOL`` of the
+   loop's, a second launch bitwise equal, and the kernel's and the loop's
+   times beside the update's bound (:func:`bag_update_bytes`: each output
+   written once, each operand row read once where its masks are nonzero,
+   the adjacency once).
 5c. The counting service: one ``CountingService`` serves the same graph to
    two tenants, the 3-vertex graphlets with an (epsilon, delta) target and
    the four 4-vertex templates at 8 iterations, then repeats the second on
@@ -259,9 +258,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    with its output newly allocated, and the allocator's retries in it are
    recorded beside it.  Then one
    ``count_keys_chunk`` through the ``blocked`` engine, whose picker must
-   choose a chunk of 1, launches kernel A once per stage, its time split
-   into the wide stages' launches (CUDA events) and the rest, and
-   ``compiled_memory_analysis`` must stay within the budget.  The totals,
+   choose a chunk of 1, launches kernel A once per stage, and
+   ``compiled_memory_analysis`` must stay within the budget; u20's chunk
+   is timed, split into the wide stages' launches (CUDA events) and the
+   rest (the benchmark's ``rmat17-u18-wide`` cell times u18's).  The totals,
    past fp32's range at this size, must be finite: the engine's range
    shift (recorded beside them) holds them.  They are held against the
    plain ``edges`` engine within ``TOTALS_RTOL`` at :data:`WIDE_GATE_N`
@@ -295,10 +295,12 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 The second-to-last line of output is the ``kernels`` JSON record; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without
 the repository beside this file, the script prints no result and exits
-nonzero.  Times come from CUDA events; ``bound_ms`` is the larger of the
-compulsory bytes over 3.35 TB/s and the operations over the H100 SXM's
-published peak for their type: 67 TFLOP/s fp32 for the counting kernels,
-989 TFLOP/s dense bf16 for attention.
+nonzero.  Times come from CUDA events, device splits and idle shares from
+``portbench.trace``; ``bound_ms`` is the larger of the compulsory bytes
+over 3.35 TB/s and the operations over the H100 SXM's published peak for
+their type (``portbench.roofline``, which also counts kernels A's and B's
+work): 67 TFLOP/s fp32 for the counting kernels, 989 TFLOP/s dense bf16
+for attention.
 """
 
 from __future__ import annotations
@@ -319,11 +321,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-#: outside the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
+#: H100 SXM published peak (NVIDIA data sheet) of the bf16 tensor cores,
+#: dense; the HBM and fp32 peaks are ``portbench.roofline``'s.
+PEAK_BF16_FLOPS = 989e12
 
 GRAPH_SPEC = dict(n=1 << 20, num_edges=8_388_608, seed=1)
 TEMPLATE = "u12"
@@ -407,6 +407,9 @@ FRONTEND_FAULT_SEED = 0
 #: at 2048 1.04e38; H100 80GB HBM3 at 700 W): the ``edges`` engine takes 4
 #: and 15 s there, under the 60 s it may take.
 WIDE_CELLS = (("u18", 1 << 17), ("u20", 1 << 15))
+#: The wide cells whose one chunk is timed here: the benchmark's
+#: ``rmat17-u18-wide`` cell times u18's.
+WIDE_TIMED = ("u20",)
 WIDE_EDGES_PER_VERTEX = 8
 WIDE_SEED = 1
 WIDE_GATE_N = {"u18": 1 << 12, "u20": 1 << 11}
@@ -561,12 +564,6 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_FP32_FLOPS) -> tuple:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls after one warm-up."""
     import torch
@@ -668,13 +665,14 @@ def load_balance(graph, operand, geometries, bsz, widths) -> dict:
     that both libraries export (checked first).  Beside them, figures worked
     out here, not measured: the kernels' scratch bytes, the no-reuse gather
     floor of each stage's SpMM half (``|E| * B * C_p * 4`` bytes at
-    :data:`PEAK_BYTES_PER_S`), the visits of a split by rows (one warp per
-    row, rows ``w, w + 8, ...`` of a 64-row block, every 64-column passive
-    tile in turn), and the sizes of the compact operand and of the
+    ``portbench.roofline.PEAK_BYTES_PER_S``), the visits of a split by rows
+    (one warp per row, rows ``w, w + 8, ...`` of a 64-row block, every
+    64-column passive tile in turn), and the sizes of the compact operand and of the
     reference's padded one.  Raises if a fused stage exceeds
     :data:`VISIT_CAP`."""
     import numpy as np
 
+    from portbench.roofline import PEAK_BYTES_PER_S
     from repro_torch.core.colorsets import binom
     from repro_torch.kernels.spmm_blocked import ops as blocked_ops
     from repro_torch.kernels.spmm_ema import ops as ema_ops
@@ -742,9 +740,9 @@ def load_balance(graph, operand, geometries, bsz, widths) -> dict:
 
 
 def check_known_colorings(device) -> dict:
-    """The port's threefry draws against JAX's known answers, then the same
-    draws on ``device`` against the CPU's, bit for bit, at the sizes of the
-    smoke graphs."""
+    """The port's threefry draws against JAX's known answers, then, on a
+    device other than the CPU, the same draws there against the CPU's, bit
+    for bit, at the sizes of the smoke graphs."""
     import torch
 
     from repro_torch.core.prng import fold_in, prng_key, randint, split
@@ -760,7 +758,7 @@ def check_known_colorings(device) -> dict:
             raise AssertionError(f"split(prng_key({seed}), {num}) = {got}, JAX draws {want}")
     cpu = torch.device("cpu")
     compared = 0
-    for n in (MOTIF_GRAPH_SPEC["n"], GRAPH_SPEC["n"]):
+    for n in (MOTIF_GRAPH_SPEC["n"], GRAPH_SPEC["n"]) if device.type != "cpu" else ():
         for k in (3, 4, 12):
             keys = split(prng_key(k, cpu), MOTIF_KEYS)
             want = randint(keys, (n,), 0, k)
@@ -808,6 +806,7 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
     not measured, so it stays out of the rows)."""
     import torch
 
+    from portbench.roofline import bound_s, product_work
     from repro_torch.kernels.spmm_blocked.ops import (check_int32_counts, slab_visits,
                                                        spmm_blocked)
     from repro_torch.kernels.spmm_blocked.ref import spmm_ref
@@ -839,8 +838,8 @@ def check_spmm_blocked(operand, widths, device, reps=5) -> tuple:
             "grid_ctas": counts["grid x (heavy blocks + light ranges)"] * counts["grid y (slabs)"],
             "slabs": visits["slabs"], "max_warp_visits": visits["max"],
             "bound_warp_visits": visits["bound"]}
-        nbytes = 2 * n * c * 4 + (n + 1) * 4 + e * 4
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, e * c)
+        bound, row["bound_by"] = bound_s(*product_work(c, n, e))
+        row["bound_ms"] = bound * 1e3
         if device.type == "cuda":
             row["ms"] = time_ms(lambda: spmm_blocked(operand, m), reps)
             row["plain_ms"] = time_ms(
@@ -882,6 +881,8 @@ def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
     half of the function; the port never calls it)."""
     import torch
 
+    from portbench.roofline import bound_s, fused_stage_work
+    from portbench.shapes import TreeStage
     from repro_torch.core.colorsets import binom, build_split_table
     from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, spmm_ema
     from repro_torch.kernels.spmm_ema.ref import spmm_ema_ref
@@ -916,10 +917,8 @@ def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
         row = {"shape": f"k={k} m={m} m_a={m_a} B={bsz} C_p={c_p} C_a={c_a} "
                         f"n_out={table.n_out} splits={table.n_splits}",
                "max_abs_err": err, "bitwise_repeatable": bitwise}
-        nbytes = (n * bsz * (c_p + c_a + table.n_out) * 4 + (n + 1) * 4 + e * 4
-                  + table.n_out * table.n_splits * 4)
-        flops = e * bsz * c_p + 2 * n * bsz * table.n_out * table.n_splits
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        bound, row["bound_by"] = bound_s(*fused_stage_work(TreeStage(k, m, m_a), n, e, bsz))
+        row["bound_ms"] = bound * 1e3
         if device.type == "cuda":
             row["ms"] = time_ms(lambda: spmm_ema(operand, m_p, m_aa, tables), reps)
             row["plain_ms"] = time_ms(plain, 1)
@@ -937,51 +936,52 @@ def check_spmm_ema(operand, geometries, bsz, device, reps=3) -> list:
 
 
 def device_profile(fn, classify=None) -> dict:
-    """Device time by kernel over one call of ``fn``, and the device's busy
-    share of the call's wall time (``torch.profiler``).  With ``classify``
-    (kernel name -> kind), also the device time per kind."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over one call of ``fn``, and the device's idle
+    share of the call's window, read by ``portbench.trace.summarize``: the
+    window is a ``portbench.trace.WINDOW_SPAN`` around the call and a
+    synchronise, busy time the union of the device's kernels, copies and
+    sets in it.  With ``classify`` (kernel name -> kind), also the device
+    time per kind."""
+    import torch
+    from torch.profiler import record_function
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    from portbench import trace
 
-    def device_us(evt):
-        return getattr(evt, "self_device_time_total", 0) or getattr(evt, "self_cuda_time_total", 0)
-
-    # a record_function range's device copy is a user annotation whose device
-    # time is the range's whole length: it is no work of the device's own
-    averages = [e for e in prof.key_averages()
-                if not getattr(e, "is_user_annotation", False)
-                and not e.key.startswith("repro_torch.")]
-    # device-side events (kernels, copies); operator rows would count them twice
-    events = [e for e in averages
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
-    source = "device events"
-    if not events:
-        events, source = [e for e in averages if device_us(e) > 0], "operators"
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(events, key=device_us, reverse=True)[:6]
+    torch.cuda.synchronize()
+    with trace.profiler() as prof:
+        with record_function(trace.WINDOW_SPAN):
+            fn()
+            torch.cuda.synchronize()
+    summary = trace.summarize(prof)
+    calls = {}
+    for ev in summary.device_events:
+        calls[ev.name] = calls.get(ev.name, 0) + 1
     out = {
-        "source": source,
-        "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": (1.0 - busy_ms / wall_ms) if events else None,
-        "top": [{"name": e.key[:60], "ms": device_us(e) / 1e3, "calls": e.count} for e in top],
+        "wall_ms": summary.window_s * 1e3,
+        "device_busy_ms": summary.busy_s * 1e3,
+        "device_idle_share": 1.0 - summary.busy_s / summary.window_s,
+        "top": [{"name": name[:60], "ms": sec * 1e3, "calls": calls[name]}
+                for name, sec in summary.top_ops(6)],
     }
     if classify is not None:
         split = {}
-        for e in events:
-            kind = classify(e.key)
-            split[kind] = split.get(kind, 0.0) + device_us(e) / 1e3
+        for name, sec in summary.seconds_by_name.items():
+            kind = classify(name)
+            split[kind] = split.get(kind, 0.0) + sec * 1e3
         out["split_ms"] = split
     return out
 
 
-def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
+def kernel_family(name: str) -> str:
+    """A device kernel's name without its return type, anonymous namespaces,
+    template arguments and parameters: as :func:`device_profile`'s
+    ``classify``, the device time of each kernel over all its instances."""
+    name = name.replace("void ", "").replace("(anonymous namespace)::", "")
+    return name.split("<")[0].split("(")[0]
+
+
+def main_path(graph, template_name, device, budget) -> dict:
     import numpy as np
-    import torch
 
     from repro_torch.core.engine import CountingEngine
     from repro_torch.core.prng import prng_key, split
@@ -997,29 +997,18 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
     if engine.backend != "blocked":
         raise AssertionError(f"backend='auto' resolved to {engine.backend!r}, not 'blocked'")
     keys = split(prng_key(0, device), engine.chunk_size)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-
     reset_counting_launches()
-    t0 = time.perf_counter()
-    est = engine.count_keys(keys)  # returns on the host: synchronised
-    run_s = time.perf_counter() - t0
+    est = engine.count_keys(keys)
     launches = counting_launches()
     device_launches = {"spmm_ema": spmm_ema.device_launches,
                        "spmm_blocked": spmm_blocked.device_launches}
-
-    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
-    profile = device_profile(lambda: engine.count_keys(keys)) if with_profile else None
     raw = est / engine._norm_factors.cpu().numpy()[None, :]
     if not np.all(np.isfinite(est)) or np.any(est < 0):
         raise AssertionError(f"{template_name}: totals not finite and >= 0: {est.tolist()}")
 
     plain = CountingEngine(graph, [template], backend="edges",
                            memory_budget_bytes=budget, **kwargs)
-    t0 = time.perf_counter()
     est_plain = plain.count_keys(keys)
-    plain_s = time.perf_counter() - t0
     if not np.allclose(est, est_plain, rtol=TOTALS_RTOL, atol=0.0):
         raise AssertionError(f"blocked {est.tolist()} vs edges {est_plain.tolist()} "
                              f"beyond rtol={TOTALS_RTOL}")
@@ -1037,13 +1026,8 @@ def main_path(graph, template_name, device, budget, with_profile=False) -> dict:
         "kernel_scratch_bytes": max(
             scratch_bytes(engine.backend_impl.operand, engine.chunk_size, t.c_p)
             for t in engine.backend_impl._fused_tables.values()),
-        "seconds_per_coloring": run_s / keys.shape[0],
-        "plain_edges_seconds_per_coloring": plain_s / keys.shape[0],
-        "max_memory_allocated": peak,
-        "predicted_peak_bytes": engine.predicted_peak_bytes(),
         "launches": launches,
         "device_launches": device_launches,
-        "profile": profile,
         "estimates": est[:, 0].tolist(),
         "raw_totals": raw[:, 0].tolist(),
         "max_rel_diff_vs_edges": float(np.max(np.abs(est - est_plain) / np.abs(est_plain))),
@@ -1201,21 +1185,13 @@ def motif_path(graph, device, budget) -> dict:
             raise AssertionError(f"{set_name}: backend='auto' resolved to {engine.backend!r}")
         bsz = min(engine.chunk_size, MOTIF_KEYS)
         n_chunks = -(-MOTIF_KEYS // bsz)
-        t0 = time.perf_counter()
-        engine.count_keys(keys)  # first call: allocator growth, lazy set-up
-        first_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         bag_before = dict(engine.counters)
         reset_counting_launches()
-        t0 = time.perf_counter()
-        est = engine.count_keys(keys)  # returns on the host: synchronised
-        run_s = time.perf_counter() - t0
+        est = engine.count_keys(keys)
         launches = counting_launches()
         bag_ops = {k: engine.counters[k] - bag_before[k] for k in ("bag_fused", "bag_loop")}
         device_launches = {"spmm_ema": spmm_ema.device_launches,
                            "spmm_blocked": spmm_blocked.device_launches}
-        peak = torch.cuda.max_memory_allocated()
         widths = bag_widths(engine, bsz)
         if launches["spmm_blocked"] != len(widths) * n_chunks or launches["spmm_ema"] <= 0:
             raise AssertionError(f"{set_name}: launches {launches}, expected "
@@ -1228,13 +1204,10 @@ def motif_path(graph, device, budget) -> dict:
             launches_total[name] += launches[name]
         for name in device_launches:
             device_launches_total[name] += device_launches[name]
-        profile = device_profile(lambda: engine.count_keys(keys), motif_kernel_kind)
         plain = CountingEngine(graph, templates, backend="edges", chunk_size=1, device=device)
         before = counting_launches()["bag_ema"]
-        t0 = time.perf_counter()
         with bag_updates_on_the_loop():
             est_plain = plain.count_keys(keys)
-        plain_s = time.perf_counter() - t0
         if counting_launches()["bag_ema"] != before or plain.counters["bag_fused"]:
             raise AssertionError(f"{set_name}: the plain engine launched the bag eMA")
         if not (np.all(np.isfinite(est)) and np.all(est >= 0)):
@@ -1247,19 +1220,14 @@ def motif_path(graph, device, budget) -> dict:
             "set": set_name, "templates": [t.name for t in engine.templates],
             "backend": engine.backend, "backend_reason": engine.backend_reason,
             "chunk_size": engine.chunk_size, "colorings_per_chunk": bsz, "chunks": n_chunks,
-            "engine_build_s": build_s, "first_call_s": first_s,
-            "seconds_per_coloring": run_s / MOTIF_KEYS,
-            "plain_edges_seconds_per_coloring": plain_s / MOTIF_KEYS,
+            "engine_build_s": build_s,
             "bag_widths": widths,
             "launches": launches,
             "device_launches": device_launches,
             "bag_ops": bag_ops,
             "plain_bag_ops": {"fused": plain.counters["bag_fused"],
                               "loop": plain.counters["bag_loop"]},
-            "max_memory_allocated": peak,
-            "predicted_peak_bytes": bsz * engine.bytes_per_coloring(),
             "dense_adjacency_bytes": graph.n * graph.n * 4,
-            "profile": profile,
             "estimates": est.tolist(),
             "max_rel_diff_vs_edges": float(np.max(np.abs(est - est_plain)[nz] / est_plain[nz]))
             if nz.any() else 0.0,
@@ -1281,24 +1249,27 @@ def viewed_bytes(t) -> int:
     return count * t.element_size()
 
 
-def bag_update_bytes(a, p, mask_axes, adj, n_out) -> tuple:
-    """The bag eMA's compulsory traffic on these operands, and the vertex
-    tuples whose masks are nonzero: the output once, each operand's rows at
-    those tuples (at most its distinct elements), the adjacency once where
-    masked."""
+def bag_update_bytes(a, p, mask_axes, adj, n_out) -> dict:
+    """The bag eMA's compulsory traffic on these operands, by part: the
+    output once (``out``), each operand's rows at the vertex tuples whose
+    masks are nonzero, at most its distinct elements (``a``, ``p``), the
+    adjacency once where masked (``adj``); beside them, those tuples
+    (``live_tuples``) and all of them (``tuples``)."""
     import torch
 
     r, n = p.dim() - 2, p.shape[0]
-    live = n ** r
+    tuples = live = n ** r
     if mask_axes:
         mask = torch.ones((1,) * r, device=p.device)
         for x in mask_axes:
             mask = mask * adj.reshape((n,) + (1,) * (x - 1) + (n,) + (1,) * (r - 1 - x))
         live = int(torch.count_nonzero(mask.expand((n,) * r)))
     row = p.shape[-2] * 4
-    nbytes = (n ** r * row * n_out + min(viewed_bytes(a), live * row * a.shape[-1])
-              + min(viewed_bytes(p), live * row * p.shape[-1]) + (n * n * 4 if mask_axes else 0))
-    return nbytes, live
+    return {"out": tuples * row * n_out,
+            "a": min(viewed_bytes(a), live * row * a.shape[-1]),
+            "p": min(viewed_bytes(p), live * row * p.shape[-1]),
+            "adj": n * n * 4 if mask_axes else 0,
+            "live_tuples": live, "tuples": tuples}
 
 
 def compare_rows(host, want, rtol: float, what: str) -> tuple:
@@ -1322,6 +1293,7 @@ def check_bag_op(be, what, a, p, tables, mask_axes, host, reps) -> dict:
     operands, with both times and the update's bound."""
     import torch
 
+    from portbench.roofline import bound_s
     from repro_torch.exec.local import LocalBackend
     from repro_torch.kernels.spmm_ema.ops import bag_ema
 
@@ -1351,15 +1323,17 @@ def check_bag_op(be, what, a, p, tables, mask_axes, host, reps) -> dict:
     del want
     plain_ms = time_ms(loop, 1)
     torch.cuda.empty_cache()
-    nbytes, live = bag_update_bytes(a, p, mask_axes, adj, tables.n_out)
+    model = bag_update_bytes(a, p, mask_axes, adj, tables.n_out)
+    nbytes, live = model["out"] + model["a"] + model["p"] + model["adj"], model["live_tuples"]
     row = {"shape": f"{what} r={p.dim() - 2} B={p.shape[-2]} C_a={a.shape[-1]} "
                     f"C_p={p.shape[-1]} n_out={tables.n_out} terms={tables.n_terms} "
                     f"masks={len(mask_axes)}",
            "max_abs_err": err, "bitwise_repeatable": bitwise, "bitwise_vs_loop": equal,
            "p_broadcast": p.stride(0) == 0, "p_contiguous": p.is_contiguous(),
            "live_tuples": live, "gb": nbytes / 1e9}
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2 * live * p.shape[-2] * tables.n_out
-                                                * tables.n_terms)
+    bound, row["bound_by"] = bound_s(nbytes, 2 * live * p.shape[-2] * tables.n_out
+                                     * tables.n_terms)
+    row["bound_ms"] = bound * 1e3
     row["ms"], row["plain_ms"] = ms, plain_ms
     row["tb_s"] = nbytes / ms / 1e9
     return row
@@ -1731,6 +1705,7 @@ def check_flash(cfg, shapes, device, reps=3) -> list:
     import torch
     import torch.nn.functional as F
 
+    from portbench.roofline import PEAK_BYTES_PER_S
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -1761,7 +1736,9 @@ def check_flash(cfg, shapes, device, reps=3) -> list:
                "max_rel_err": rel}
         nbytes = 2 * (2 * b * s * h * d + 2 * b * s * h_kv * d)   # q, o; k, v
         flops = 4 * b * h * s * s * d / 2
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+        row["bound_ms"], row["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                            else (t_ops, "operations"))
         row["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=True), reps)
         row["tflops"] = flops / row["ms"] / 1e9
         row["plain_ms"] = time_ms(plain, 1)
@@ -3131,6 +3108,7 @@ def recsys_train(cfg, device) -> dict:
 
     import torch
 
+    from portbench.roofline import PEAK_FP32_FLOPS, bound_s
     from repro_torch.launch.train import make_recsys_job
     from repro_torch.train.tree import tree_leaves
 
@@ -3158,13 +3136,13 @@ def recsys_train(cfg, device) -> dict:
     flops = 3.0 * (recsys_flops(train_cfg, b) + 2.0 * b * b * train_cfg.tower_mlp[-1])
     # compulsory bytes: parameters and AdamW's moments read and written once
     nbytes = 2 * (tensor_bytes(state["params"]) + tensor_bytes(state["opt"])) + tensor_bytes(batches[0])
-    bound, bound_by = bound_ms(nbytes, flops)
+    bound, bound_by = bound_s(nbytes, flops)
     out = {"cell": "train_batch", **recsys_vocab(train_cfg, RECSYS_TRAIN_VOCAB), "batch": b,
            "parameters": sum(p.numel() for p in tree_leaves(state["params"])),
            "table_bytes": tensor_bytes(state["params"]["user_tables"] + state["params"]["item_tables"]),
            "init_s": init_s, "step_ms": step_ms, "ms_per_step": ms,
            "examples_per_s": b / (ms / 1e3), "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "model_flops_per_step": flops, "bound_ms": bound, "bound_by": bound_by,
+           "model_flops_per_step": flops, "bound_ms": bound * 1e3, "bound_by": bound_by,
            "model_flop_share": flops / PEAK_FP32_FLOPS / (ms / 1e3),
            "losses": [float(x) for x in losses]}
     out.update(recsys_split(state, step, batches[-1], train_cfg))
@@ -3216,6 +3194,7 @@ def recsys_serve(cfg, device) -> dict:
     weights and the corpus)."""
     import torch
 
+    from portbench.roofline import bound_s
     from repro_torch.data.pipeline import click_batches
     from repro_torch.models import recsys as R
 
@@ -3235,9 +3214,9 @@ def recsys_serve(cfg, device) -> dict:
         requests = [next(stream)[:2] for _ in range(RECSYS_WARMUP + RECSYS_REQUESTS)]
         rec = {"cell": "serve_p99", "batch": b,
                **recsys_latency(lambda x: R.serve_scores(params, serve_cfg, *x), requests)}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
-            rows_bytes(serve_cfg, *requests[-1]) + towers + 4 * b,
-            recsys_flops(serve_cfg, b) + 2.0 * b * d)
+        bound, rec["bound_by"] = bound_s(rows_bytes(serve_cfg, *requests[-1]) + towers + 4 * b,
+                                         recsys_flops(serve_cfg, b) + 2.0 * b * d)
+        rec["bound_ms"] = bound * 1e3
         out["serve_p99"] = rec
         log(f"[recsys] serve_p99 {json.dumps(rec)}")
         del requests
@@ -3254,8 +3233,8 @@ def recsys_serve(cfg, device) -> dict:
                "rows_per_s": b / (ms / 1e3), "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "distinct_row_bytes": rows_bytes(serve_cfg, uix, iix),
                "flops": recsys_flops(serve_cfg, b) + 2.0 * b * d}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(rec["distinct_row_bytes"] + towers + 4 * b,
-                                                    rec["flops"])
+        bound, rec["bound_by"] = bound_s(rec["distinct_row_bytes"] + towers + 4 * b, rec["flops"])
+        rec["bound_ms"] = bound * 1e3
         out["serve_bulk"] = rec
         log(f"[recsys] serve_bulk {json.dumps(rec)}")
         del uix, iix, scores
@@ -3264,17 +3243,18 @@ def recsys_serve(cfg, device) -> dict:
         cell = recsys_cell("retrieval_cand")
         n = cell["n_candidates"]
         corpus, build_ms = recsys_corpus(params, serve_cfg, n, device, seed=13)
-        build_bound = bound_ms(corpus.numel() * 4, recsys_flops(serve_cfg, n) / 2)
+        build_bound = bound_s(corpus.numel() * 4, recsys_flops(serve_cfg, n) / 2)
         stream = click_batches(serve_cfg, cell["batch"], seed=14, device=device)
         queries = [next(stream)[0] for _ in range(RECSYS_WARMUP + RECSYS_REQUESTS)]
         rec = {"cell": "retrieval_cand", "n_candidates": n, "k": RECSYS_TOPK,
                "corpus_chunk": RECSYS_CORPUS_CHUNK, "corpus_build_ms": build_ms,
-               "corpus_build_bound_ms": build_bound[0], "corpus_build_bound_by": build_bound[1],
+               "corpus_build_bound_ms": build_bound[0] * 1e3, "corpus_build_bound_by": build_bound[1],
                **recsys_latency(lambda q: R.retrieval_topk(
                    R.retrieval_scores(params, serve_cfg, q, corpus), RECSYS_TOPK), queries)}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(
+        bound, rec["bound_by"] = bound_s(
             corpus.numel() * 4 + towers / 2 + rows_bytes(serve_cfg, queries[-1]),
             2.0 * n * d + recsys_flops(serve_cfg, 1) / 2)
+        rec["bound_ms"] = bound * 1e3
         out["retrieval_cand"] = rec
         log(f"[recsys] retrieval_cand {json.dumps(rec)}")
     del params, corpus, queries
@@ -3695,6 +3675,8 @@ def check_wide_stage(operand, k, m, m_a, device) -> dict:
     ``torch.sparse.mm`` on the ``(n, C_p)`` passive state (the SpMM half)."""
     import torch
 
+    from portbench.roofline import PEAK_BYTES_PER_S, bound_s, fused_stage_work
+    from portbench.shapes import TreeStage
     from repro_torch.core.colorsets import binom, build_split_table
     from repro_torch.kernels.spmm_blocked.ref import spmm_ref
     from repro_torch.kernels.spmm_ema.ops import prepare_stage_tables, scratch_bytes, spmm_ema
@@ -3760,10 +3742,11 @@ def check_wide_stage(operand, k, m, m_a, device) -> dict:
     row["plain_ms"] = (time.perf_counter() - t0) * 1e3
     row["max_abs_err"] = worst
     del agg, got
-    nbytes = (n * (c_p + c_a + table.n_out) * 4 + (n + 1) * 4 + e * 4
-              + table.n_out * table.n_splits * 8)
-    flops = e * c_p + 2 * n * table.n_out * table.n_splits
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    nbytes, flops = fused_stage_work(TreeStage(k, m, m_a), n, e, 1)
+    # the wide rows price the split table at 8 bytes a split, the fused
+    # stages' bound at 4: kept, so that the rows' bounds compare across runs
+    bound, row["bound_by"] = bound_s(nbytes + table.n_out * table.n_splits * 4, flops)
+    row["bound_ms"] = bound * 1e3
     if device.type == "cuda":
         torch.cuda.empty_cache()
         csr = torch.sparse_csr_tensor(
@@ -3883,12 +3866,12 @@ def wide_cell(template_name, n, device, budget) -> dict:
                              f"{engine.chunk_size}, not 1")
     stages = sum(1 for st in engine.plan_ir.stages if not st.is_leaf)
     keys = split(prng_key(0, device), 1)
+    timed = template_name in WIDE_TIMED
     reset_counting_launches()
     t0 = time.perf_counter()
-    with timed_wide_launches(engine, device) as wide_events:
+    with (timed_wide_launches(engine, device) if timed else contextlib.nullcontext()) as wide_events:
         est = engine.count_keys_chunk(keys)  # returns on the host: synchronised
     run_s = time.perf_counter() - t0
-    wide_ms = sum(start.elapsed_time(stop) for start, stop in wide_events)
     launches = counting_launches()
     device_launches = spmm_ema.device_launches
     if launches["spmm_ema"] != stages:
@@ -3903,13 +3886,15 @@ def wide_cell(template_name, n, device, budget) -> dict:
     rec = {"template": template_name, "n": graph.n, "directed_edges": graph.num_directed,
            "max_degree": int(graph.max_degree()), "peak_columns": engine.peak_columns(),
            "chunk_size": engine.chunk_size, "engine_build_s": build_s,
-           "seconds_per_coloring": run_s, "wide_stage_launches": len(wide_events),
-           "wide_stage_ms": wide_ms, "rest_ms": run_s * 1e3 - wide_ms,
            "stages": stages, "launches": launches,
            "device_launches": device_launches, "estimate": est[:, 0].tolist(),
            "totals_finite": finite, "memory": memory,
            "bytes_per_coloring": engine.bytes_per_coloring(), "wide_stages": rows}
     rec["range"] = engine.describe()["range"]
+    if timed:
+        wide_ms = sum(start.elapsed_time(stop) for start, stop in wide_events)
+        rec.update(seconds_per_coloring=run_s, wide_stage_launches=len(wide_events),
+                   wide_stage_ms=wide_ms, rest_ms=run_s * 1e3 - wide_ms)
     if not finite:
         raise AssertionError(f"[wide] {template_name}: totals not finite at n={graph.n} "
                              f"({est[:, 0].tolist()}) under the range shift {rec['range']}")
@@ -4169,8 +4154,6 @@ def kernel_record(name, path, source, replaces, launches, rows, timed=None) -> d
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the full record to this JSON file")
-    parser.add_argument("--profile", action="store_true",
-                        help="also profile one more main-path chunk with torch.profiler")
     args = parser.parse_args(argv)
 
     if not (HERE / "src" / "repro_torch" / "kernels" / "_build.py").is_file():
@@ -4230,7 +4213,7 @@ def run(args, device, sweep) -> int:
     del operand
     torch.cuda.empty_cache()
 
-    main = main_path(graph, TEMPLATE, device, MEMORY_BUDGET_BYTES, with_profile=args.profile)
+    main = main_path(graph, TEMPLATE, device, MEMORY_BUDGET_BYTES)
     if main["chunk_size"] != EMA_CHUNK:
         raise AssertionError(f"chunk {main['chunk_size']} != the {EMA_CHUNK} the kernels were checked at")
     torch.cuda.empty_cache()

@@ -15,10 +15,11 @@ Where the package has the bag eMA kernel (``kernels/spmm_ema/ops.py``
 ``bag_ema``), each extend and join also times its update alone on the
 operands the op hands it: the executor's loop
 (``LocalBackend._bag_extend_loop`` / ``_bag_join_loop``) against the
-kernel, with the update's bytes model (each operand row read once where
-its masks are nonzero, the adjacency once, the output written once), the
-achieved TB/s, the bound at 3.35 TB/s, the largest relative gap between
-the two and whether two kernel launches gave the same bits.  To time a
+kernel, with the update's bytes model (``chip_smoke.bag_update_bytes``:
+each operand row read once where its masks are nonzero, the adjacency
+once, the output written once), the achieved TB/s, the bound at 3.35
+TB/s, the largest relative gap between the two and whether two kernel
+launches gave the same bits.  To time a
 parent tree beside this one on the same card::
 
     git archive <commit> | tar -x -C build/parent
@@ -26,7 +27,8 @@ parent tree beside this one on the same card::
     python3 scripts/bag_ema_probe.py --tag change --profile
 
 Prints one JSON line per op (``--out`` appends them to a file);
-``--profile`` adds each op's device time by kernel from ``torch.profiler``.
+``--profile`` adds each op's device time by kernel
+(``chip_smoke.device_profile``).
 Needs a CUDA card.
 """
 
@@ -34,51 +36,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CASES = (("g4-2", 10), ("g4-3", 10), ("g3-1", 10), ("g3-1", 23))
-HBM_BYTES_PER_S = 3.35e12
-
-
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-
-
-def time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def profile_ms(fn) -> dict:
-    """Device milliseconds of one call of ``fn`` by kernel (name cut at its
-    template arguments), from ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) / 1e3
-        if ms > 0:
-            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0]
-            out[name] = round(out.get(name, 0.0) + ms, 4)
-    return out
 
 
 def checksum(t) -> float:
@@ -89,41 +51,6 @@ def checksum(t) -> float:
     if t.dim() == 0 or t.shape[0] == 0:
         return float(t.double().sum())
     return sum(float(t[i:i + 256].double().sum()) for i in range(0, t.shape[0], 256))
-
-
-def distinct_bytes(t) -> int:
-    """Bytes of the distinct elements a view reads (broadcast axes once)."""
-    count = 1
-    for size, stride in zip(t.shape, t.stride()):
-        if stride:
-            count *= size
-    return count * t.element_size()
-
-
-def update_bytes(a, p, mask_axes, adj, n_out) -> dict:
-    """The bag eMA's compulsory traffic on these operands: the output once,
-    each operand's rows at the vertex tuples whose masks are nonzero (at
-    most its distinct elements), the adjacency once where masked."""
-    import torch
-
-    r = p.dim() - 2
-    n = p.shape[0]
-    tuples = n ** r
-    live = tuples
-    if mask_axes:
-        mask = torch.ones((1,) * r, device=p.device)
-        for x in mask_axes:
-            mask = mask * adj.reshape((n,) + (1,) * (x - 1) + (n,) + (1,) * (r - 1 - x))
-        live = int(torch.count_nonzero(mask.expand((n,) * r)))
-    row = p.shape[-2] * 4
-    return {
-        "out": tuples * row * n_out,
-        "a": min(distinct_bytes(a), live * row * a.shape[-1]),
-        "p": min(distinct_bytes(p), live * row * p.shape[-1]),
-        "adj": n * n * 4 if mask_axes else 0,
-        "live_tuples": live,
-        "tuples": tuples,
-    }
 
 
 def main() -> int:
@@ -139,7 +66,9 @@ def main() -> int:
 
     import torch
 
+    import chip_smoke as C
     from portbench.graphs.rmat import make
+    from portbench.roofline import PEAK_BYTES_PER_S
     from repro_torch.core.engine import CountingEngine
     from repro_torch.core.graph import Graph
     from repro_torch.core.templates import Template
@@ -151,7 +80,7 @@ def main() -> int:
     cfg = json.loads((ROOT / "portbench" / "configs" / "rmat8k-motifs.json").read_text())
     src, dst = make(cfg["graph"], 0, device)
     graph = Graph(n=cfg["graph"]["n"], src=src.cpu().numpy(), dst=dst.cpu().numpy())
-    head = {"tag": args.tag, "card": card_line(), "torch": torch.__version__,
+    head = {"tag": args.tag, "card": C.card_line(), "torch": torch.__version__,
             "n": graph.n, "edges": graph.num_directed, "bag_ema": has_kernel}
     print(json.dumps(head), flush=True)
     lines = [head]
@@ -192,9 +121,9 @@ def main() -> int:
                    "masks": len(op.mask_vertices), "forget": list(op.forget_vertices),
                    "out_shape": list(state.shape),
                    "checksum": checksum(state),
-                   "op_ms": time_ms(run, args.reps)}
+                   "op_ms": C.time_ms(run, args.reps)}
             if args.profile:
-                row["op_profile_ms"] = profile_ms(run)
+                row["op_profile_ms"] = C.device_profile(run, C.kernel_family)["split_ms"]
             if has_kernel and op.kind != "forget":
                 captured["on"] = True  # one more run, keeping the update's operands
                 run()
@@ -202,7 +131,7 @@ def main() -> int:
                 mask_axes = captured["mask_axes"]
                 adj = be._bag_adj if mask_axes else None
                 captured.clear()
-                model = update_bytes(a, p, mask_axes, adj, tables.n_out)
+                model = C.bag_update_bytes(a, p, mask_axes, adj, tables.n_out)
                 total = model["out"] + model["a"] + model["p"] + model["adj"]
                 # at most two outputs live beside the op's operands: the g4
                 # states take 10.7-16.1 GB each
@@ -212,8 +141,8 @@ def main() -> int:
                 del again
                 head, fused_sum = fused[:64].clone(), checksum(fused)
                 del fused
-                kernel_ms = time_ms(lambda: ops.bag_ema(a, p, tables.ent, mask_axes, adj),
-                                    args.reps)
+                kernel_ms = C.time_ms(lambda: ops.bag_ema(a, p, tables.ent, mask_axes, adj),
+                                      args.reps)
                 if op.kind == "extend":
                     owned = p.stride(0) != 0
                     leaf_b = leaf
@@ -231,14 +160,14 @@ def main() -> int:
                 gap = float(((head - want[:64]).abs() / want[:64].abs().clamp_min(1e-30)).max())
                 want_sum = checksum(want)
                 del want
-                loop_ms = time_ms(loop, args.reps)
+                loop_ms = C.time_ms(loop, args.reps)
                 row.update({
                     "update": {"rank": p.dim() - 2, "c_a": a.shape[-1], "c_p": p.shape[-1],
                                "n_out": tables.n_out, "n_terms": tables.n_terms,
                                "p_broadcast": p.stride(0) == 0,
                                "p_contiguous": p.is_contiguous()},
                     "bytes": model, "bytes_total": total,
-                    "bound_ms": total / HBM_BYTES_PER_S * 1e3,
+                    "bound_ms": total / PEAK_BYTES_PER_S * 1e3,
                     "kernel_ms": kernel_ms, "kernel_tb_s": total / kernel_ms / 1e9,
                     "loop_ms": loop_ms, "loop_tb_s": total / loop_ms / 1e9,
                     "kernel_bitwise_repeat": bitwise,
@@ -247,9 +176,10 @@ def main() -> int:
                         abs(fused_sum - want_sum) / max(abs(want_sum), 1e-30),
                 })
                 if args.profile:
-                    row["kernel_profile_ms"] = profile_ms(
-                        lambda: ops.bag_ema(a, p, tables.ent, mask_axes, adj))
-                    row["loop_profile_ms"] = profile_ms(loop)
+                    row["kernel_profile_ms"] = C.device_profile(
+                        lambda: ops.bag_ema(a, p, tables.ent, mask_axes, adj),
+                        C.kernel_family)["split_ms"]
+                    row["loop_profile_ms"] = C.device_profile(loop, C.kernel_family)["split_ms"]
                 del a, p, head, loop
             slots[canons[i]] = state
             print(json.dumps(row), flush=True)

@@ -30,21 +30,18 @@ import argparse
 import ctypes
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
+import chip_smoke as C  # noqa: E402
+from portbench.roofline import bound_s, product_work  # noqa: E402
+
 #: The paw's and 4-cycle's extends at a chunk of 10, the 4-cycle's last
 #: extend, and the service's triangle (24,576 x 23), then two narrow ones.
 WIDTHS = (491_520, 327_680, 565_248, 300, 40)
-
-
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
 def slab_variant(nbytes: int) -> Path:
@@ -87,20 +84,6 @@ def launcher(lib, operand, partials):
     return run
 
 
-def time_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--widths", default=",".join(map(str, WIDTHS)))
@@ -131,7 +114,7 @@ def main() -> int:
         sources[f"slab_bytes_{int(nbytes)}"] = slab_variant(int(nbytes))
     built = _build.build(list(sources.values()))
     libs = {name: _build.load(path) for name, path in sources.items()}
-    head = {"card": card_line(), "n": operand.n, "edges": operand.num_directed,
+    head = {"card": C.card_line(), "n": operand.n, "edges": operand.num_directed,
             "heavy_rows": part.n_heavy, "segments": part.n_segments, "ranges": part.n_ranges,
             "build_s": built}
     print(json.dumps(head), flush=True)
@@ -144,8 +127,8 @@ def main() -> int:
         m = torch.rand((operand.n, c), generator=gen, device=device)
         partials = torch.empty((part.n_segments, c), device=device)
         want, buf = torch.empty_like(m), None
-        row = {"cols": c, "bound_ms": (2 * operand.n * c * 4 + (operand.n + 1) * 4
-                                       + operand.num_directed * 4) / 3.35e12 * 1e3,
+        row = {"cols": c,
+               "bound_ms": bound_s(*product_work(c, operand.n, operand.num_directed))[0] * 1e3,
                "model": ops.slab_visits(operand, c)}
         for name, lib in libs.items():
             run = launcher(lib, operand, partials)
@@ -164,10 +147,10 @@ def main() -> int:
                 del ref
             elif not torch.equal(want, buf):
                 raise AssertionError(f"{name} at C={c}: not bitwise equal to the committed build")
-            row[name] = {"ms": time_ms(lambda: run(m, out), args.reps), "slabs": slabs}
+            row[name] = {"ms": C.time_ms(lambda: run(m, out), args.reps), "slabs": slabs}
         del buf, out
         torch.cuda.empty_cache()
-        row["library_ms"] = time_ms(lambda: torch.sparse.mm(csr, m), args.reps)
+        row["library_ms"] = C.time_ms(lambda: torch.sparse.mm(csr, m), args.reps)
         print(json.dumps(row), flush=True)
         lines.append(row)
         del m, want, partials

@@ -17,15 +17,14 @@ the same card::
 Each stage prints one JSON line (ms, route, an fp64 checksum of the
 output); ``--out`` appends them to a file.  ``--wide-smem BYTES`` lowers
 ``WIDE_SMEM_BYTES`` (supports of at most BYTES / 16 columns), and
-``--profile`` adds the timed launch's device time by kernel from
-``torch.profiler``.  Needs a CUDA card.
+``--profile`` adds the timed launch's device time by kernel
+(``chip_smoke.device_profile``).  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -37,30 +36,6 @@ WIDE_STAGES = {"u18": ((18, 10, 7), (18, 14, 10)),
 EDGES_PER_VERTEX = 8
 
 
-def card_line() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-
-
-def profile_ms(fn) -> dict:
-    """Device milliseconds of one call of ``fn`` by kernel (name cut at its
-    template arguments), from ``torch.profiler``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        ms = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0)) / 1e3
-        if ms > 0:
-            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0]
-            out[name] = out.get(name, 0.0) + ms
-    return out
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--src", default=str(ROOT / "src"), help="the package's parent directory")
@@ -70,10 +45,12 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true")
     parser.add_argument("--out", default="")
     args = parser.parse_args()
-    sys.path.insert(0, str(Path(args.src).resolve()))
+    sys.path[:0] = [str(Path(args.src).resolve()), str(ROOT)]
 
     import torch
 
+    import chip_smoke as C
+    from portbench.roofline import PEAK_BYTES_PER_S
     from repro_torch.core.colorsets import binom, build_split_table
     from repro_torch.core.graph import rmat_graph
     from repro_torch.kernels.spmm_blocked.ops import prepare_operand
@@ -83,7 +60,7 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = C.card_line()
     if args.wide_smem:
         ops.WIDE_SMEM_BYTES = args.wide_smem
     wanted = {tuple(int(x) for x in s.split(":")) for s in args.stages.split(",") if s}
@@ -116,8 +93,8 @@ def main() -> int:
             repeatable = bool(torch.equal(first, out))
             checksum = sum(float(out[i:i + 4096].double().sum()) for i in range(0, n, 4096))
             del first, out
-            by_kernel = profile_ms(lambda: ops.spmm_ema(operand, m_p, m_aa, tables)) \
-                if args.profile else None
+            by_kernel = C.device_profile(lambda: ops.spmm_ema(operand, m_p, m_aa, tables),
+                                         C.kernel_family)["split_ms"] if args.profile else None
             row = {"tag": args.tag, "template": template, "n": n,
                    "directed_edges": graph.num_directed, "stage": [k, m, m_a], "c_p": c_p,
                    "c_a": c_a, "n_out": table.n_out, "splits": table.n_splits,
@@ -125,7 +102,7 @@ def main() -> int:
                    "device_launches": launched,
                    "bitwise_repeatable": repeatable, "checksum": checksum,
                    "prepare_s": prep_s,
-                   "gather_floor_ms": graph.num_directed * c_p * 4 / 3.35e12 * 1e3,
+                   "gather_floor_ms": graph.num_directed * c_p * 4 / PEAK_BYTES_PER_S * 1e3,
                    "wide_smem_bytes": args.wide_smem or None, "card": card}
             if by_kernel is not None:
                 row["profile_ms_by_kernel"] = by_kernel
